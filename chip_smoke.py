@@ -1,0 +1,524 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written kernels from ``opentelemetry_demo_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the main path's shapes,
+checks the detector on the card against the CPU on a small input, then
+drives the main path end to end (OTLP protobuf bodies → decode →
+``SpanTensorizer`` → ``DetectorPipeline`` → reports) at the default
+``DetectorConfig`` with an injected latency fault, at batch width 2048
+(``sketch_impl=None``: the fused-update kernel) and 65536
+(``sketch_impl="xla"``: the CMS-histogram kernel). It finishes with each
+kernel's time beside its plain version, a library call where one exists,
+and its memory bound.
+
+Any failed phase raises, so the script exits non-zero and prints no
+result. Without a CUDA device it exits non-zero at once. The last line
+of standard output is ``{"ok": true, "device": {...}}``; the lines before
+it are the kernel table as one JSON object and the card's name and power
+limit. The build log goes to ``chiprun_out/chip_smoke_build.log``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+# The H100 SXM's memory rate, bytes/s (NVIDIA data sheet).
+HBM_BYTES_PER_S = 3.35e12
+
+# Float outputs: sums taken in another order (per-block partials vs a
+# one-hot product) move them by a few ulp.
+RTOL, ATOL = 1e-4, 1e-5
+
+N_SERVICES = 20
+DT_S = 0.25  # virtual seconds between batches
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip smoke check failed: {msg}")
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float | None, float]:
+    """``(device ms, wall ms)`` per call of ``fn``.
+
+    Wall: ``iters`` calls back to back between two synchronises, on the
+    host clock; for a small kernel that is its launch overhead. Device: a
+    spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues the calls, so the CUDA events bracket the device work alone.
+    If the spin ends before the host has enqueued every call (the host
+    also blocks once the device's launch queue is full), the measurement
+    is repeated with half the calls, down to one, then with a longer
+    spin. Device is ``None`` when ``fn`` waits on the device itself, so
+    that no spin stays ahead.
+    """
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    spin = 10_000_000  # cycles, a few ms at the H100's clock
+    while spin <= 700_000_000:  # at most about a third of a second
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        ahead = not start.query()
+        stop.synchronize()
+        if ahead:
+            return start.elapsed_time(stop) / iters, wall
+        if iters > 1:
+            iters //= 2
+        else:
+            spin *= 4
+    return None, wall
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max().item())
+
+
+def close(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+
+
+# -- inputs at the main path's shapes -----------------------------------------
+
+
+def batch_lanes(rng, cfg, b: int, device):
+    """One packed batch as the detector step hands it to the sketch update:
+    a few lanes are padding, a few carry service ids ≥ S."""
+    from opentelemetry_demo_tpu_torch.ops import cms
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    n = b - b // 32
+    svc = rng.integers(0, N_SERVICES, n).astype(np.int32)
+    svc[: n // 64] = rng.integers(cfg.num_services, cfg.num_services + 8, n // 64)
+    batch = SpanTensorizer(cfg.num_services, b).pack_arrays(
+        svc,
+        rng.gamma(4.0, 250.0, n).astype(np.float32),
+        rng.integers(0, 2**63, n, dtype=np.uint64),
+        (rng.random(n) < 0.02).astype(np.float32),
+        rng.zipf(1.3, n).astype(np.uint64),
+    )
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    attr_hi, attr_lo = dev(batch.attr_hi.view(np.int32)), dev(batch.attr_lo.view(np.int32))
+    return dict(
+        svc=dev(batch.svc),
+        log_lat=torch.log1p(dev(batch.lat_us)),
+        is_error=dev(batch.is_error),
+        trace_hi=dev(batch.trace_hi.view(np.int32)),
+        trace_lo=dev(batch.trace_lo.view(np.int32)),
+        cidx=cms.cms_indices(attr_hi, attr_lo, cfg.cms_depth, cfg.cms_width),
+        valid=dev(batch.valid),
+    )
+
+
+def random_state(rng, cfg, device):
+    """Banks with history in both halves (so the current bank is a strided
+    view) and heads past their warmups."""
+    s, t, nw = cfg.num_services, cfg.num_taus, cfg.num_windows
+
+    def dev(x):
+        return torch.from_numpy(x).to(device)
+
+    hll_bank = dev(rng.integers(0, 20, (nw, 2, s, 1 << cfg.hll_p)).astype(np.int32))
+    cms_bank = dev(rng.integers(0, 500, (nw, 2, cfg.cms_depth, cfg.cms_width)).astype(np.int32))
+    heads = dict(
+        lat_mean=rng.gamma(40.0, 0.17, (s, t)),
+        lat_var=rng.gamma(2.0, 0.1, (s, t)),
+        err_mean=rng.random((s, t)) * 0.05,
+        rate_mean=rng.gamma(4.0, 100.0, (s, t)),
+        rate_var=rng.gamma(2.0, 500.0, (s, t)),
+        cusum=rng.random((s, 3)) * 3.0,
+        obs_batches=rng.integers(0, 120, s).astype(np.float64),
+    )
+    heads = {k: dev(v.astype(np.float32)) for k, v in heads.items()}
+    return hll_bank, cms_bank, heads
+
+
+def head_kw(cfg) -> dict:
+    return dict(
+        taus_s=tuple(float(x) for x in cfg.taus_s), warmup_batches=cfg.warmup_batches,
+        z_warmup_batches=cfg.z_warmup_batches, cusum_k=cfg.cusum_k,
+        cusum_cap=cfg.cusum_cap, err_slack=cfg.err_slack,
+    )
+
+
+def fused_bound_bytes(lanes, cfg) -> int:
+    """Bytes the fused update must move for this batch: each lane read once,
+    each bank cell the batch touches read and written once in each
+    window, the heads read and written, stats and z's written."""
+    b, d = lanes["svc"].shape[0], cfg.cms_depth
+    s, t, nw, r = cfg.num_services, cfg.num_taus, cfg.num_windows, 1 << cfg.hll_p
+    lane_bytes = b * (4 * 5 + 1 + 4 * d)
+    svc = lanes["svc"].long()
+    ok = lanes["valid"] & (svc >= 0) & (svc < s)
+    from opentelemetry_demo_tpu_torch.ops import hll
+
+    bucket, _ = hll.hll_indices(lanes["trace_hi"], lanes["trace_lo"], cfg.hll_p)
+    hll_cells = torch.unique((svc * r + bucket.long())[ok]).numel()
+    keys = lanes["cidx"].long() + torch.arange(d, device=svc.device)[:, None] * cfg.cms_width
+    cms_cells = torch.unique(keys[:, lanes["valid"]]).numel()
+    bank_bytes = (hll_cells + cms_cells) * nw * 4 * 2
+    head_bytes = (5 * s * t + 3 * s + s) * 4 * 2 + 3 * s * t * 4 + 4 * s * 4 + 8
+    return lane_bytes + bank_bytes + head_bytes
+
+
+# -- phases ------------------------------------------------------------------------
+
+
+def phase_build():
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    paths = _kernels.build_all()
+    build_s = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_build.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in _kernels.BUILD_LOG.items())
+    )
+    print(f"build: {sorted(paths)} in {build_s:.2f} s")
+
+
+def phase_fused_update(cfg, device, results):
+    """K1 against its plain version at B = 2048 and 8192."""
+    from opentelemetry_demo_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for b in (2048, 8192):
+        lanes = batch_lanes(rng, cfg, b, device)
+        hll_bank, cms_bank, heads = random_state(rng, cfg, device)
+        outs = []
+        for update in (fused.fused_update, fused.fused_update_plain):
+            hb, cb = hll_bank.clone(), cms_bank.clone()
+            hs = fused.HeadState(**{k: v.clone() for k, v in heads.items()})
+            stats, zs = update(
+                hb[:, 0], cb[:, 0], lanes["svc"], lanes["log_lat"], lanes["is_error"],
+                lanes["trace_hi"], lanes["trace_lo"], lanes["cidx"], lanes["valid"],
+                num_services=cfg.num_services, hll_p=cfg.hll_p, heads=hs,
+                dt=torch.tensor(DT_S, device=device),
+                step_pos=torch.tensor(7, dtype=torch.int32, device=device),
+                statics=head_kw(cfg),
+            )
+            torch.cuda.synchronize()
+            outs.append((hb, cb, [stats, *hs, *zs]))
+        (hk, ck, fk), (hp, cp, fp) = outs
+        check(torch.equal(hk, hp), f"fused_update HLL banks differ at B={b}")
+        check(torch.equal(ck, cp), f"fused_update CMS banks differ at B={b}")
+        check(not torch.equal(hk, hll_bank) and not torch.equal(ck, cms_bank), "banks unchanged")
+        for i, (a, p) in enumerate(zip(fk, fp)):
+            check(close(a, p), f"fused_update float output {i} differs at B={b}: {max_err(a, p)}")
+            worst = max(worst, max_err(a, p))
+        print(f"fused_update B={b}: banks bit-exact, floats max abs err {worst:.3g}")
+    results["fused_update"] = {"max_abs_err": worst}
+
+
+def phase_cms_hist(cfg, device, results):
+    """K2 against its plain version at B = 65536 (D·B keys, with sentinels)."""
+    from opentelemetry_demo_tpu_torch.ops import cms
+
+    rng = np.random.default_rng(2)
+    lanes = batch_lanes(rng, cfg, 65536, device)
+    n_bins = cfg.cms_depth * cfg.cms_width
+    rows = torch.arange(cfg.cms_depth, dtype=torch.int32, device=device)[:, None] * cfg.cms_width
+    keys = torch.where(lanes["valid"][None, :], lanes["cidx"] + rows, n_bins).reshape(-1)
+    check(int((keys == n_bins).sum()) > 0, "no sentinel keys")
+    got = cms.cms_hist(keys, n_bins)
+    want = cms.cms_hist_plain(keys, n_bins)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "cms_hist differs from its plain version")
+    check(int(got.sum()) == int((keys < n_bins).sum()), "cms_hist lost keys")
+    print(f"cms_hist {keys.numel()} keys, {n_bins} bins: exact")
+    results["cms_hist"] = {"max_abs_err": 0.0}
+
+
+def phase_detector_vs_cpu(device):
+    """The detector on the card against the CPU on a small input."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    small = dict(num_services=8, hll_p=8, cms_width=512, windows_s=(0.5, 1.0, 2.5),
+                 warmup_batches=3.0, z_warmup_batches=5.0, warmup_windows=1.0)
+    for impl in (None, "xla"):
+        rng = np.random.default_rng(3)
+        tz = SpanTensorizer(8, 256)
+        card = AnomalyDetector(DetectorConfig(**small, sketch_impl=impl), device=device)
+        cpu = AnomalyDetector(DetectorConfig(**small, sketch_impl="xla"), device="cpu")
+        for step in range(16):
+            n = 240
+            lat = rng.gamma(4.0, 250.0, n).astype(np.float32)
+            svc = rng.integers(0, 8, n).astype(np.int32)
+            if step >= 8:
+                lat = np.where(svc == 2, lat * 5, lat).astype(np.float32)
+            batch = tz.pack_arrays(svc, lat, rng.integers(0, 300, n, dtype=np.uint64),
+                                   (rng.random(n) < 0.05).astype(np.float32),
+                                   rng.zipf(1.5, n).astype(np.uint64))
+            g = card.observe(batch, step * DT_S)
+            c = cpu.observe(batch, step * DT_S)
+            for name, a, p in zip(c._fields, g, c):
+                a = a.cpu()
+                check(bool(torch.isfinite(a.float()).all()), f"{name} not finite")
+                check(a.shape == p.shape, f"{name} shape {tuple(a.shape)}")
+                if name == "flags":
+                    check(torch.equal(a, p), f"flags differ at step {step} (impl={impl})")
+                else:
+                    check(close(a, p), f"{name} differs at step {step} (impl={impl}): {max_err(a, p)}")
+        for name, a, p in zip(card.state._fields, card.state, cpu.state):
+            a = a.cpu()
+            check(torch.equal(a, p) if not a.is_floating_point() else close(a, p),
+                  f"state {name} differs (impl={impl})")
+    print("detector on the card == CPU on a small input (impl None and 'xla')")
+
+
+def make_bodies(rng, n_bodies, spans, slow=None):
+    """OTLP protobuf export bodies from the port's encoder: N_SERVICES
+    services, ``slow`` (if given) ten times slower."""
+    from opentelemetry_demo_tpu_torch.runtime.otlp import encode_export_request
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanRecord
+
+    bodies = []
+    for k in range(n_bodies):
+        svc = rng.integers(0, N_SERVICES, spans)
+        base = 300.0 * (1.0 + svc)
+        lat = rng.gamma(8.0, base / 8.0) * np.where(svc == slow, 10.0, 1.0)
+        err = rng.random(spans) < 0.01
+        attrs = rng.zipf(1.3, spans) % 500
+        tids = rng.bytes(16 * spans)
+        recs = [
+            SpanRecord(f"service-{svc[i]:02d}", float(lat[i]), tids[16 * i:16 * i + 16],
+                       bool(err[i]), f"product-{attrs[i]}", "op")
+            for i in range(spans)
+        ]
+        bodies.append(encode_export_request(recs, 10**18 + k * 250_000_000))
+    return bodies
+
+
+def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, results):
+    """Warm up on clean traffic, then a ×10 latency step on one service:
+    it must flag, and nothing may flag before onset."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.otlp import decode_export_request
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    rng = np.random.default_rng(4)
+    slow = 7
+    spans = width // bodies_per_batch
+    pool = 8 * bodies_per_batch if width > 8192 else n_warm + n_fault
+    clean = make_bodies(rng, pool, spans)
+    faulty = make_bodies(rng, max(pool // 2, n_fault * bodies_per_batch), spans, slow=slow)
+    cfg = DetectorConfig(sketch_impl=impl)
+    reports = []
+    pipe = DetectorPipeline(
+        AnomalyDetector(cfg, device=device),
+        on_report=lambda t, rep, names: reports.append((t, rep, names)),
+        batch_size=width,
+    )
+    _kernels.reset_launches()
+    decode_s = 0.0
+    t0 = time.perf_counter()
+    for k in range(n_warm + n_fault):
+        src, j = (clean, k) if k < n_warm else (faulty, k - n_warm)
+        for i in range(bodies_per_batch):
+            body = src[(j * bodies_per_batch + i) % len(src)]
+            td = time.perf_counter()
+            recs = decode_export_request(body)
+            decode_s += time.perf_counter() - td
+            pipe.submit(recs)
+        pipe.pump(k * DT_S)
+    pipe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    n_batches = n_warm + n_fault
+    check(pipe.stats.batches == n_batches, f"dispatched {pipe.stats.batches} batches")
+    check(pipe.stats.spans == n_batches * width, f"{pipe.stats.spans} spans")
+    check(len(reports) == n_batches, f"{len(reports)} reports harvested")
+    names = pipe.tensorizer.service_names
+    target = f"service-{slow:02d}"
+    for t, rep, flagged in reports:
+        for name in rep._fields:
+            check(bool(np.isfinite(getattr(rep, name).astype(np.float64)).all()), f"{name} not finite")
+        check(rep.lat_z.shape == (cfg.num_services, cfg.num_taus), "lat_z shape")
+        check(float(rep.svc_count.sum()) == width, "svc_count does not sum to the batch")
+    before = [flagged for t, _, flagged in reports[:n_warm] if flagged]
+    check(not before, f"flags before onset: {before[:3]}")
+    after = [flagged for _, _, flagged in reports[n_warm:] if flagged]
+    check(bool(after), f"{target} never flagged")
+    check(after[0] == [target], f"first flag after onset names {after[0]}, not {target}")
+    check(target in names, "faulted service not interned")
+    kernel = "fused_update" if impl is None else "cms_hist"
+    check(launches[kernel] == n_batches, f"{kernel} launched {launches[kernel]} times")
+    ttd = next(i for i, (_, _, f) in enumerate(reports[n_warm:]) if target in f) + 1
+    rate = pipe.stats.spans / wall
+    print(f"e2e B={width} impl={impl}: {n_batches} batches, {pipe.stats.spans} spans in "
+          f"{wall:.3f} s = {rate:.0f} spans/s (decode {decode_s:.3f} s); "
+          f"{target} flagged {ttd} batch(es) after onset; launches {launches}")
+    results[kernel]["launches"] = launches[kernel]
+    return dict(width=width, impl=impl, spans_per_s=rate, wall_s=wall, decode_s=decode_s,
+                batches=n_batches, ttd_batches=ttd, launches=launches)
+
+
+def phase_step_time(device, impl, width):
+    """One detector step at this width: ``(device ms, wall ms)``."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import detector_step, report_pack
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    rng = np.random.default_rng(5)
+    det = AnomalyDetector(DetectorConfig(sketch_impl=impl), device=device)
+    n = width
+    batch = SpanTensorizer(32, width).pack_arrays(
+        rng.integers(0, N_SERVICES, n).astype(np.int32), rng.gamma(4.0, 250.0, n).astype(np.float32),
+        rng.integers(0, 2**63, n, dtype=np.uint64), np.zeros(n, np.float32),
+        rng.zipf(1.3, n).astype(np.uint64),
+    )
+    args = det._args(batch, 0.0)
+
+    def step():
+        report_pack(detector_step(det.config, det.state, *args)[1])
+
+    return time_ms(step, 5)
+
+
+def phase_times(cfg, device, results):
+    """Each kernel, its plain version and the library call on the same
+    inputs, in turns (plain, kernel, kernel, plain)."""
+    from opentelemetry_demo_tpu_torch.ops import cms, fused
+
+    rng = np.random.default_rng(6)
+    lanes = batch_lanes(rng, cfg, 2048, device)
+    hll_bank, cms_bank, heads = random_state(rng, cfg, device)
+    hs = fused.HeadState(**heads)
+    kw = dict(num_services=cfg.num_services, hll_p=cfg.hll_p, heads=hs,
+              dt=torch.tensor(DT_S, device=device),
+              step_pos=torch.tensor(7, dtype=torch.int32, device=device), statics=head_kw(cfg))
+    args = (hll_bank[:, 0], cms_bank[:, 0], lanes["svc"], lanes["log_lat"], lanes["is_error"],
+            lanes["trace_hi"], lanes["trace_lo"], lanes["cidx"], lanes["valid"])
+    plain = (lambda: fused.fused_update_plain(*args, **kw), 10)
+    kernel = (lambda: fused.fused_update(*args, **kw), 200)
+    k1 = results["fused_update"]
+    k1["turns"] = [time_ms(*f) for f in (plain, kernel, kernel, plain)]
+    k1["bound_ms"] = fused_bound_bytes(lanes, cfg) / HBM_BYTES_PER_S * 1e3
+    k1["library"] = (None, None)
+
+    lanes = batch_lanes(rng, cfg, 65536, device)
+    n_bins = cfg.cms_depth * cfg.cms_width
+    rows = torch.arange(cfg.cms_depth, dtype=torch.int32, device=device)[:, None] * cfg.cms_width
+    keys = torch.where(lanes["valid"][None, :], lanes["cidx"] + rows, n_bins).reshape(-1).contiguous()
+    plain = (lambda: cms.cms_hist_plain(keys, n_bins), 20)
+    kernel = (lambda: cms.cms_hist(keys, n_bins), 200)
+    k2 = results["cms_hist"]
+    k2["turns"] = [time_ms(*f) for f in (plain, kernel, kernel, plain)]
+    # The yardstick: one PyTorch call computing the same histogram.
+    k2["library"] = time_ms(lambda: torch.bincount(keys, minlength=n_bins + 1)[:n_bins], 50)
+    k2["bound_ms"] = (keys.numel() * 4 + n_bins * 4) / HBM_BYTES_PER_S * 1e3
+    for name, r in results.items():
+        (p1, _), (k1_, _), (k2_, _), (p2, _) = r["turns"]
+        check(None not in (p1, k1_, k2_, p2), f"{name}: a device time could not be taken")
+        r["ms"], r["plain_ms"] = k1_, p1
+        lib_dev, lib_wall = r["library"]
+        # bincount sizes its output from the keys' maximum, a host read,
+        # so its device time may not be separable: then its wall time.
+        r["library_ms"] = lib_dev if lib_dev is not None else lib_wall
+        print(f"time {name}: device kernel {k1_:.5f} / {k2_:.5f} ms, plain {p1:.5f} / {p2:.5f} ms; "
+              f"wall kernel {r['turns'][1][1]:.5f} ms, plain {r['turns'][0][1]:.5f} ms; "
+              f"library (device, wall) {r['library']}; bound {r['bound_ms']:.6f} ms")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    # The composed path's segment stats are a float32 matmul: keep it in
+    # full float32 (PyTorch's default, stated here).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    device = torch.device("cuda")
+    card = gpu_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+
+    cfg = DetectorConfig()
+    results: dict[str, dict] = {}
+    phase_build()
+    phase_fused_update(cfg, device, results)
+    phase_cms_hist(cfg, device, results)
+    phase_detector_vs_cpu(device)
+    e2e = [
+        phase_end_to_end(device, None, 2048, n_warm=40, n_fault=4, bodies_per_batch=1, results=results),
+        phase_end_to_end(device, "xla", 65536, n_warm=24, n_fault=3, bodies_per_batch=8, results=results),
+    ]
+    for leg in e2e:
+        leg["step_device_ms"], leg["step_wall_ms"] = phase_step_time(device, leg["impl"], leg["width"])
+        leg["device_busy_share"] = (
+            None if leg["step_device_ms"] is None
+            else leg["step_device_ms"] * leg["batches"] / (leg["wall_s"] * 1e3)
+        )
+        print(f"step B={leg['width']} impl={leg['impl']}: device {leg['step_device_ms']} ms, "
+              f"wall {leg['step_wall_ms']:.4f} ms; device busy share of the e2e run "
+              f"{leg['device_busy_share']}")
+    phase_times(cfg, device, results)
+
+    src = "opentelemetry_demo_tpu_torch/csrc"
+    meta = {
+        "fused_update": ("cuda", f"{src}/fused_update.cu", "opentelemetry_demo_tpu/ops/fused.py:317"),
+        "cms_hist": ("cuda", f"{src}/cms_hist.cu", "opentelemetry_demo_tpu/ops/cms.py:181"),
+    }
+    kernels = []
+    for name, (route, source, replaces) in meta.items():
+        r = results[name]
+        kernels.append(dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
+            library_ms=r["library_ms"],
+        ))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e,
+         "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

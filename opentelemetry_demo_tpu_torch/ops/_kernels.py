@@ -1,0 +1,208 @@
+"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes one plain C launcher (``<name>_launch``)
+that launches on the caller's stream and returns ``cudaGetLastError()``.
+This module compiles a source with ``nvcc`` for ``sm_90a`` at its first
+use, into ``build/torch_kernels/`` beside the package (the file name
+carries a hash of the source, so an edited kernel is rebuilt), loads it
+with ``ctypes``, and raises if a build or a launch fails. There is no
+fallback: a caller with a CUDA tensor gets the kernel or an exception.
+
+Each launcher here adds one to ``LAUNCHES[name]`` when it launches its
+kernel, and nowhere else, so a run can show that its path went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+# Extra nvcc flags per kernel. The head epilogue of fused_update is built
+# without FMA contraction so it rounds once per operation, as the plain
+# PyTorch version does.
+_FLAGS = {
+    "fused_update": ["--fmad=false"],
+    "cms_hist": [],
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_ARGTYPES = {
+    "fused_update": [
+        _P, _P, _P, _P, _P, _P, _P,  # svc log_lat is_error hi lo cidx valid
+        _I, _I, _I, _I, _I,  # B S p D Wc
+        _P, _L, _P, _L, _I,  # hll hll_ws cms cms_ws n_windows
+        _P, _I, _P, _I,  # partials n_blocks stats fold
+        _P, _P, _P, _P, _P, _P, _P,  # lat_mean lat_var err_mean rate_mean rate_var cusum obs
+        _P, _P,  # dt step_idx
+        _P, _P, _P,  # lat_z err_z rate_z
+        ctypes.POINTER(_F), _I,  # taus n_taus
+        _F, _F, _F, _F, _F,  # warmup z_warmup cusum_k cusum_cap err_slack
+        _P,  # stream
+    ],
+    "cms_hist": [_P, _L, _I, _P, _I, _P],  # keys n n_bins counts n_blocks stream
+}
+
+LAUNCHES = {name: 0 for name in _ARGTYPES}
+BUILD_LOG: dict[str, str] = {}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(_FLAGS[name]).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def _compile_cmd(name: str, out: Path) -> list[str]:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-Xptxas", "-v", *_FLAGS[name], "-shared", "-Xcompiler",
+        "-fPIC", "-o", str(out), str(CSRC / f"{name}.cu"),
+    ]
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every kernel that is not built yet, one ``nvcc`` per
+    source, all started together. Returns ``name → library path``;
+    raises with the compiler's output if any build fails. The compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) is kept in
+    ``BUILD_LOG``."""
+    names = list(_ARGTYPES) if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    paths = {}
+    for name in names:
+        out = _lib_path(name)
+        paths[name] = out
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (
+            subprocess.Popen(
+                _compile_cmd(name, tmp),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ),
+            tmp,
+        )
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
+    return paths
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def _check(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_cms_hist(keys: torch.Tensor, n_bins: int, counts: torch.Tensor) -> None:
+    """counts[n_bins] += histogram of ``keys`` (int32, contiguous, CUDA)."""
+    smem = n_bins * 4
+    if smem > 232448:
+        raise ValueError(
+            f"cms_hist keeps {n_bins} bins in shared memory ({smem} B); "
+            "an H100 block has at most 232448 B"
+        )
+    n = keys.numel()
+    n_blocks = max(1, min(132, -(-n // 16384)))
+    fn = _lib("cms_hist").cms_hist_launch
+    rc = fn(_ptr(keys), n, n_bins, _ptr(counts), n_blocks, _stream(keys.device))
+    _check("cms_hist", rc)
+    LAUNCHES["cms_hist"] += 1
+
+
+def launch_fused_update(
+    *, svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid,
+    num_services, hll_p, cms_width, hll_cur, cms_cur, partials, stats,
+    heads=None, dt=None, step_idx=None, zs=None, statics=None,
+) -> None:
+    """Launch the sketch kernel and the stats/heads kernel on the current
+    stream. Tensors are validated by the caller (ops.fused)."""
+    b = svc.shape[0]
+    d = cidx.shape[0]
+    n_windows = hll_cur.shape[0]
+    fold = heads is not None
+    if fold:
+        taus = statics["taus_s"]
+        taus_arr = (_F * len(taus))(*taus)
+        head_ptrs = [_ptr(h) for h in heads]
+        extra = [
+            _ptr(dt), _ptr(step_idx), *(_ptr(z) for z in zs), taus_arr,
+            len(taus), statics["warmup_batches"], statics["z_warmup_batches"],
+            statics["cusum_k"], statics["cusum_cap"], statics["err_slack"],
+        ]
+    else:
+        head_ptrs = [None] * 7
+        extra = [None, None, None, None, None, (_F * 1)(0.0), 0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    fn = _lib("fused_update").fused_update_launch
+    rc = fn(
+        _ptr(svc), _ptr(log_lat), _ptr(is_error), _ptr(trace_hi),
+        _ptr(trace_lo), _ptr(cidx), _ptr(valid),
+        b, num_services, hll_p, d, cms_width,
+        _ptr(hll_cur), hll_cur.stride(0), _ptr(cms_cur), cms_cur.stride(0),
+        n_windows, _ptr(partials), partials.shape[0], _ptr(stats), int(fold),
+        *head_ptrs, *extra, _stream(svc.device),
+    )
+    _check("fused_update", rc)
+    LAUNCHES["fused_update"] += 1

@@ -1,0 +1,251 @@
+"""Span records → fixed-width batches (the host hot path).
+
+A span record here is the minimal tuple the detector consumes:
+``(service, duration_us, trace_id, is_error, attr)``. Strings die at
+this boundary:
+
+- ``service`` → a small int id via a bounded intern table; the last id
+  is the overflow bucket, so shapes never change.
+- ``trace_id`` → its first 8 bytes as a little-endian uint64, then
+  splitmix64 → (hi, lo) uint32 lanes.
+- ``attr`` → CRC32 of the string, folded with the service id, then
+  splitmix64: the (service, attr) CMS key.
+- ``duration_us``, ``is_error`` → float32 lanes.
+
+Batches are fixed width ``B`` with a validity mask. The arrays stay
+numpy (the hash lanes ``uint32``); the detector moves them to the device
+in one copy and reinterprets the hash lanes as ``int32``.
+
+Idle-key eviction, the new-key admission gate and the per-worker intern
+arenas of the reference arrive with the keyspace and ingest-pool slices.
+"""
+
+from __future__ import annotations
+
+import threading
+import zlib
+from dataclasses import dataclass
+from typing import Iterable, NamedTuple
+
+import numpy as np
+
+from ..ops.hashing import split_hi_lo_np, splitmix64_np
+
+
+class SpanEvent(NamedTuple):
+    """One span event. ``ts_offset_us`` is relative to span START;
+    ``attrs`` is a tuple of (key, value) pairs so the record stays
+    hashable."""
+
+    name: str
+    ts_offset_us: float = 0.0
+    attrs: tuple = ()
+
+
+# Event names that carry error-cause evidence: the OTel semconv
+# record_exception name, and the "error"/"Error" events some services
+# emit instead. Spans carrying one feed the error lane even when their
+# status is unset.
+EXCEPTION_EVENT_NAMES = ("exception", "error", "Error")
+
+
+def has_exception_event(events) -> bool:
+    return any(e.name in EXCEPTION_EVENT_NAMES for e in events)
+
+
+class SpanRecord(NamedTuple):
+    """One ingested span."""
+
+    service: str
+    duration_us: float
+    trace_id: bytes | int
+    is_error: bool = False
+    attr: str | None = None
+    name: str | None = None  # operation name; the tensorizer ignores it
+    events: tuple = ()  # SpanEvent tuple; exception events → error lane
+
+
+class SpanColumns(NamedTuple):
+    """Interned columnar records — the pipeline's pending currency."""
+
+    svc: np.ndarray  # int32 — interned service ids
+    lat_us: np.ndarray  # float32
+    is_error: np.ndarray  # float32
+    trace_key: np.ndarray  # uint64 — first 8 bytes of trace id, LE
+    attr_crc: np.ndarray  # uint64 — CRC32 of the monitored attr value
+
+    @property
+    def rows(self) -> int:
+        return self.svc.shape[0]
+
+    def slice(self, start: int, stop: int) -> "SpanColumns":
+        return SpanColumns(*(a[start:stop] for a in self))
+
+    @staticmethod
+    def concat(parts: list["SpanColumns"]) -> "SpanColumns":
+        if len(parts) == 1:
+            return parts[0]
+        return SpanColumns(*(np.concatenate(cols) for cols in zip(*parts)))
+
+
+class TensorBatch(NamedTuple):
+    """Fixed-width batch; all arrays length ``B``."""
+
+    svc: np.ndarray  # int32 — service id
+    lat_us: np.ndarray  # float32 — span duration
+    is_error: np.ndarray  # float32 — 0/1 status flag
+    trace_hi: np.ndarray  # uint32 — trace-id hash hi lane
+    trace_lo: np.ndarray  # uint32
+    attr_hi: np.ndarray  # uint32 — folded (service, attr) key hash
+    attr_lo: np.ndarray  # uint32
+    valid: np.ndarray  # bool
+
+    @property
+    def batch_size(self) -> int:
+        return self.svc.shape[0]
+
+    @property
+    def num_valid(self) -> int:
+        return int(self.valid.sum())
+
+
+@dataclass
+class SpanTensorizer:
+    """Stateful bounded interner + vectorised hasher; one per stream.
+
+    ``num_services`` bounds the service axis of every sketch; the last id
+    is the overflow ("other") bucket, which a name gets once the table is
+    full. Such a name is not memorised, so memory stays bounded.
+    """
+
+    num_services: int = 32
+    batch_size: int = 2048
+
+    def __post_init__(self) -> None:
+        self._svc_ids: dict[str, int] = {}
+        self._names_by_id: list[str] = []
+        # Receivers intern on their own threads; the lock makes
+        # check-then-assign atomic. Hits read an immutable snapshot dict
+        # without the lock.
+        self._intern_lock = threading.Lock()
+        self._svc_snapshot: dict[str, int] = {}
+        self.overflow_assigns_total = 0  # misses parked in overflow
+
+    @property
+    def service_names(self) -> list[str]:
+        """Positional name table: index i is the name owning id i."""
+        return list(self._names_by_id)
+
+    def service_id(self, name: str) -> int:
+        sid = self._svc_snapshot.get(name)
+        if sid is None:
+            with self._intern_lock:
+                sid = self._assign_locked(name)
+        return sid
+
+    def _assign_locked(self, name: str) -> int:
+        """Assign (or find) ``name``'s id under the intern lock: dense
+        first-appearance ranks, the last id reserved as overflow."""
+        sid = self._svc_ids.get(name)
+        if sid is None:
+            if len(self._names_by_id) >= self.num_services - 1:
+                self.overflow_assigns_total += 1
+                return self.num_services - 1
+            sid = len(self._names_by_id)
+            self._svc_ids[name] = sid
+            self._names_by_id.append(name)
+            self._svc_snapshot = dict(self._svc_ids)
+        return sid
+
+    def tensorize(self, records: Iterable[SpanRecord]) -> list[TensorBatch]:
+        """Pack records into one or more fixed-width batches."""
+        cols = self.columns_from_records(list(records))
+        return [
+            self.pack_columns(cols.slice(start, start + self.batch_size))
+            for start in range(0, max(cols.rows, 1), self.batch_size)
+        ]
+
+    def columns_from_records(self, records: list[SpanRecord]) -> SpanColumns:
+        """Records → interned columns, one ``np.fromiter`` per lane and
+        all trace ids through one ``np.frombuffer``."""
+        n = len(records)
+        svc = np.fromiter(
+            (self.service_id(r.service) for r in records), np.int32, count=n
+        )
+        lat = np.fromiter((r.duration_us for r in records), np.float32, count=n)
+        err = np.fromiter(
+            (
+                1.0 if (r.is_error or has_exception_event(r.events)) else 0.0
+                for r in records
+            ),
+            np.float32, count=n,
+        )
+        # Trace ids: first 8 bytes little-endian, zero-padded (int ids go
+        # through the same 8-byte LE layout).
+        joined = b"".join(
+            bytes(r.trace_id[:8]).ljust(8, b"\0")
+            if isinstance(r.trace_id, (bytes, bytearray))
+            else (r.trace_id & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little")
+            for r in records
+        )
+        tid = np.frombuffer(joined, dtype=np.uint64, count=n).copy()
+        crc = np.fromiter(
+            (
+                zlib.crc32((r.attr if r.attr is not None else "").encode())
+                for r in records
+            ),
+            np.uint64, count=n,
+        )
+        return SpanColumns(svc, lat, err, tid, crc)
+
+    def pack_columns(self, cols: SpanColumns, width: int | None = None) -> TensorBatch:
+        """Columns → one padded, hashed batch."""
+        return self.pack_arrays(
+            cols.svc, cols.lat_us, cols.trace_key, cols.is_error, cols.attr_crc,
+            width=width,
+        )
+
+    def pack_arrays(
+        self,
+        svc: np.ndarray,
+        lat_us: np.ndarray,
+        trace_id: np.ndarray,
+        is_error: np.ndarray | None = None,
+        attr_key: np.ndarray | None = None,
+        width: int | None = None,
+    ) -> TensorBatch:
+        """Vectorised packing of columnar data. ``svc`` must already be
+        int ids; ``trace_id``/``attr_key`` uint64 keys. Pads to (or
+        rejects rows beyond) ``width``, by default ``batch_size``. Padded
+        lanes carry the hash of the zero key and ``valid=False``."""
+        n = svc.shape[0]
+        b = width if width is not None else self.batch_size
+        if n > b:
+            raise ValueError(f"chunk of {n} exceeds batch width {b}")
+
+        def pad(x, dtype):
+            out = np.zeros(b, dtype)
+            out[:n] = x
+            return out
+
+        if is_error is None:
+            is_error = np.zeros(n, np.float32)
+        if attr_key is None:
+            attr_key = trace_id
+        attr_key = attr_key.astype(np.uint64) | (
+            svc.astype(np.uint64) << np.uint64(32)
+        )
+        t_hi, t_lo = split_hi_lo_np(splitmix64_np(pad(trace_id, np.uint64)))
+        a_hi, a_lo = split_hi_lo_np(splitmix64_np(pad(attr_key, np.uint64)))
+        valid = np.zeros(b, bool)
+        valid[:n] = True
+        return TensorBatch(
+            pad(svc, np.int32),
+            pad(lat_us, np.float32),
+            pad(is_error, np.float32),
+            t_hi,
+            t_lo,
+            a_hi,
+            a_lo,
+            valid,
+        )

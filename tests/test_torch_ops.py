@@ -1,0 +1,449 @@
+"""Sketch ops of the PyTorch port against the JAX reference.
+
+The same inputs, made from a numpy seed, go through each reference op
+and its counterpart in ``opentelemetry_demo_tpu_torch.ops``. Integer
+outputs must match exactly; float outputs within the tolerance stated
+at each assert. The reference's Pallas kernels run as its own tests run
+them on the CPU (interpret mode). Kernel-vs-plain checks on the card are
+marked ``gpu`` and skip without one.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from opentelemetry_demo_tpu.ops import cms as jcms
+from opentelemetry_demo_tpu.ops import ewma as jewma
+from opentelemetry_demo_tpu.ops import fused as jfused
+from opentelemetry_demo_tpu.ops import hashing as jhashing
+from opentelemetry_demo_tpu.ops import hll as jhll
+from opentelemetry_demo_tpu_torch.ops import _kernels
+from opentelemetry_demo_tpu_torch.ops import cms, ewma, fused, hashing, hll
+
+# float32 sums taken in another order (one-hot products, per-block
+# partials) and libm differences in exp/log/sqrt move results by a few
+# ulp; 1e-4 relative / 1e-5 absolute bounds that with room to spare.
+RTOL, ATOL = 1e-4, 1e-5
+
+HEAD_KW = dict(
+    taus_s=(1.0, 10.0, 60.0), warmup_batches=20.0, z_warmup_batches=60.0,
+    cusum_k=0.5, cusum_cap=50.0, err_slack=0.01,
+)
+
+
+def _u32_as_i32(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.uint32).view(np.int32))
+
+
+def _i32_as_u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _batch(rng, b, s, d, w, svc_lo=0, svc_hi=None):
+    """One batch as numpy arrays, the reference test_fused.py's recipe."""
+    svc_hi = s if svc_hi is None else svc_hi
+    t_hi, t_lo = jhashing.split_hi_lo_np(
+        jhashing.splitmix64_np(rng.integers(0, 2**63, size=b, dtype=np.uint64))
+    )
+    a_hi, a_lo = jhashing.split_hi_lo_np(
+        jhashing.splitmix64_np(rng.integers(0, 2**20, size=b, dtype=np.uint64))
+    )
+    cidx = jcms.cms_indices_np(a_hi, a_lo, d, w)
+    return dict(
+        svc=rng.integers(svc_lo, svc_hi, size=b).astype(np.int32),
+        log_lat=rng.gamma(2.0, 1.0, size=b).astype(np.float32),
+        is_error=(rng.random(b) < 0.1).astype(np.float32),
+        trace_hi=t_hi,
+        trace_lo=t_lo,
+        cidx=cidx,
+        valid=rng.random(b) < 0.9,
+    )
+
+
+def _jax_args(batch):
+    return [jnp.asarray(v) for v in batch.values()]
+
+
+def _torch_args(batch):
+    out = []
+    for k, v in batch.items():
+        out.append(_u32_as_i32(v) if k in ("trace_hi", "trace_lo") else torch.from_numpy(v))
+    return out
+
+
+def _heads_np(rng, s, t=3):
+    return dict(
+        lat_mean=rng.gamma(2.0, 1.0, (s, t)).astype(np.float32),
+        lat_var=rng.gamma(1.0, 0.2, (s, t)).astype(np.float32),
+        err_mean=(rng.random((s, t)) * 0.2).astype(np.float32),
+        rate_mean=rng.gamma(3.0, 10.0, (s, t)).astype(np.float32),
+        rate_var=rng.gamma(1.0, 5.0, (s, t)).astype(np.float32),
+        cusum=(rng.random((s, 3)) * 3.0).astype(np.float32),
+        obs_batches=rng.integers(0, 100, s).astype(np.float32),
+    )
+
+
+def _assert_close(ref, got, msg=""):
+    np.testing.assert_allclose(np.asarray(ref), np.asarray(got), rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+# -- hashing ------------------------------------------------------------
+
+
+def test_host_hashes_equal_reference(rng):
+    x = rng.integers(0, 2**64, size=4096, dtype=np.uint64)
+    h = hashing.splitmix64_np(x)
+    np.testing.assert_array_equal(h, jhashing.splitmix64_np(x))
+    for got, want in zip(hashing.split_hi_lo_np(h), jhashing.split_hi_lo_np(h)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_device_hashes_equal_reference(rng, seed):
+    x = rng.integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.uint32)
+    x[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    np.testing.assert_array_equal(
+        _i32_as_u32(hashing.fmix32(_u32_as_i32(x))),
+        np.asarray(jhashing.fmix32(jnp.asarray(x))),
+    )
+    for got, want in zip(
+        hashing.hash_u32_pair(_u32_as_i32(x), seed=seed),
+        jhashing.hash_u32_pair(jnp.asarray(x), seed=seed),
+    ):
+        np.testing.assert_array_equal(_i32_as_u32(got), np.asarray(want))
+    for got, want in zip(
+        hashing.hash_spans_synthetic(123456, 1000, seed=seed),
+        jhashing.hash_spans_synthetic(123456, 1000, seed=seed),
+    ):
+        np.testing.assert_array_equal(_i32_as_u32(got), np.asarray(want))
+
+
+# -- HLL ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [4, 8, 10, 12])
+def test_hll_indices_equal_reference(rng, p):
+    hi = rng.integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.uint32)
+    # Edge lanes: zero high word (rank from the low word), all-zero hash,
+    # top bit set, and a high word whose set bits all sit below p.
+    hi[:5] = [0, 0, 0x80000000, (1 << p) - 1, 1]
+    lo[:5] = [0xFFFFFFFF, 0, 0, 0x12345678, 0]
+    b_ref, r_ref = jhll.hll_indices(jnp.asarray(hi), jnp.asarray(lo), p=p)
+    b_got, r_got = hll.hll_indices(_u32_as_i32(hi), _u32_as_i32(lo), p=p)
+    np.testing.assert_array_equal(np.asarray(b_ref), b_got.numpy())
+    np.testing.assert_array_equal(np.asarray(r_ref), r_got.numpy())
+
+
+def test_hll_update_merge_and_estimate_equal_reference(rng):
+    s, p, b = 8, 8, 512
+    regs = rng.integers(0, 6, size=(3, s, 1 << p)).astype(np.int32)
+    key = rng.integers(-3, s + 3, size=b).astype(np.int32)  # out-of-range ids drop
+    bucket = rng.integers(0, 1 << p, size=b).astype(np.int32)
+    rank = rng.integers(1, 20, size=b).astype(np.int32)
+    valid = rng.random(b) < 0.8
+    ref = jhll.hll_update(
+        jnp.asarray(regs), jnp.asarray(np.where(key < 0, s, key)),
+        jnp.asarray(bucket), jnp.asarray(rank), jnp.asarray(valid),
+    )
+    got = hll.hll_update(
+        torch.from_numpy(regs), torch.from_numpy(key), torch.from_numpy(bucket),
+        torch.from_numpy(rank), torch.from_numpy(valid),
+    )
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    other = rng.integers(0, 6, size=regs.shape).astype(np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jhll.hll_merge(jnp.asarray(regs), jnp.asarray(other))),
+        hll.hll_merge(torch.from_numpy(regs), torch.from_numpy(other)).numpy(),
+    )
+    sparse = np.zeros_like(regs)
+    sparse[:, :, :40] = regs[:, :, :40]  # linear-counting regime
+    for bank in (regs, sparse):
+        _assert_close(jhll.hll_estimate(jnp.asarray(bank)), hll.hll_estimate(torch.from_numpy(bank)))
+        np.testing.assert_array_equal(jhll.hll_estimate_np(bank), hll.hll_estimate_np(bank))
+
+
+# -- CMS ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,w", [(4, 512), (2, 1024), (4, 8192)])
+def test_cms_indices_equal_reference(rng, d, w):
+    hi = rng.integers(0, 2**32, size=2048, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, size=2048, dtype=np.uint64).astype(np.uint32)
+    hi[:2] = 0xFFFFFFFF  # lo + i·hi wraps modulo 2³²
+    lo[:2] = 0xFFFFFFF0
+    ref = np.asarray(jcms.cms_indices(jnp.asarray(hi), jnp.asarray(lo), d, w))
+    np.testing.assert_array_equal(ref, cms.cms_indices(_u32_as_i32(hi), _u32_as_i32(lo), d, w).numpy())
+    np.testing.assert_array_equal(ref, cms.cms_indices_np(hi, lo, d, w))
+
+
+def test_cms_update_query_merge_equal_reference(rng):
+    d, w, b = 4, 512, 512
+    table = rng.integers(0, 100, size=(3, d, w)).astype(np.int32)
+    idx = rng.integers(0, w, size=(d, b)).astype(np.int32)
+    weight = rng.integers(0, 5, size=b).astype(np.int32)
+    valid = rng.random(b) < 0.8
+    for wt in (None, weight):
+        ref = jcms.cms_update(
+            jnp.asarray(table), jnp.asarray(idx),
+            None if wt is None else jnp.asarray(wt), jnp.asarray(valid),
+        )
+        got = cms.cms_update(
+            torch.from_numpy(table), torch.from_numpy(idx),
+            None if wt is None else torch.from_numpy(wt), torch.from_numpy(valid),
+        )
+        np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jcms.cms_query(jnp.asarray(table), jnp.asarray(idx))),
+        cms.cms_query(torch.from_numpy(table), torch.from_numpy(idx)).numpy(),
+    )
+    np.testing.assert_array_equal(jcms.cms_query_np(table, idx), cms.cms_query_np(table, idx))
+    np.testing.assert_array_equal(
+        np.asarray(jcms.cms_merge(jnp.asarray(table), jnp.asarray(table))),
+        cms.cms_merge(torch.from_numpy(table), torch.from_numpy(table)).numpy(),
+    )
+
+
+@pytest.mark.parametrize("d,w,b", [(4, 512, 512), (2, 1024, 128), (4, 512, 3)])
+def test_cms_update_hist_equal_reference_sort_engine(rng, d, w, b):
+    table = rng.integers(0, 100, size=(d, w)).astype(np.int32)
+    idx = rng.integers(0, w, size=(d, b)).astype(np.int32)
+    valid = rng.random(b) < 0.8
+    ref = jcms.cms_update_hist(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(valid), impl="sort")
+    got = cms.cms_update_hist(torch.from_numpy(table), torch.from_numpy(idx), torch.from_numpy(valid))
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+def test_cms_hist_plain_skips_sentinel_and_out_of_range():
+    keys = torch.tensor([0, 0, 3, 4, 4, 4, -1, 5], dtype=torch.int32)
+    np.testing.assert_array_equal(cms.cms_hist_plain(keys, 4).numpy(), [2, 0, 0, 1])
+
+
+def test_kernel_wrappers_refuse_devices_without_a_kernel():
+    """No fallback: only a CPU tensor takes the plain version."""
+    keys = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        cms.cms_hist(keys, 4)
+    banks = torch.zeros((3, 8, 256), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused.fused_update(banks, banks, *([keys] * 7), num_services=8, hll_p=8)
+
+
+# -- EWMA ---------------------------------------------------------------
+
+
+def test_segment_stats_and_ewma_update_equal_reference(rng):
+    b, s = 512, 8
+    values = rng.gamma(2.0, 1.0, size=b).astype(np.float32)
+    seg = rng.integers(-2, s + 2, size=b).astype(np.int32)
+    valid = rng.random(b) < 0.9
+    ref = jewma.segment_stats(jnp.asarray(values), jnp.asarray(seg), s, jnp.asarray(valid))
+    got = ewma.segment_stats(torch.from_numpy(values), torch.from_numpy(seg), s, torch.from_numpy(valid))
+    for r, g in zip(ref, got):
+        _assert_close(r, g)
+    mean = rng.random((s, 3)).astype(np.float32)
+    var = rng.random((s, 3)).astype(np.float32)
+    x = rng.random((s, 1)).astype(np.float32)
+    alpha = np.array([0.5, 0.1, 0.01], np.float32)
+    obs = rng.random((s, 1)) < 0.7
+    warm = rng.random((s, 1)) < 0.3
+    ref = jewma.ewma_update(*map(jnp.asarray, (mean, var, x, alpha, obs, warm)))
+    got = ewma.ewma_update(*map(torch.from_numpy, (mean, var, x, alpha, obs, warm)))
+    for r, g in zip(ref, got):
+        _assert_close(r, g)
+
+
+# -- fused --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("step_pos", [True, False])
+def test_head_update_equal_reference(rng, step_pos):
+    s = 8
+    stats = np.stack([
+        rng.integers(0, 40, s).astype(np.float32),
+        rng.gamma(2.0, 10.0, s).astype(np.float32),
+        rng.gamma(2.0, 50.0, s).astype(np.float32),
+        rng.integers(0, 3, s).astype(np.float32),
+    ])
+    heads = _heads_np(rng, s)
+    dt = np.float32(0.25)
+    ref_heads, ref_zs = jfused.head_update(
+        jnp.asarray(stats), jfused.HeadState(**{k: jnp.asarray(v) for k, v in heads.items()}),
+        jnp.asarray(dt), jnp.asarray(step_pos), **HEAD_KW,
+    )
+    got_heads, got_zs = fused.head_update(
+        torch.from_numpy(stats),
+        fused.HeadState(**{k: torch.from_numpy(v) for k, v in heads.items()}),
+        torch.tensor(dt), torch.tensor(step_pos), **HEAD_KW,
+    )
+    for name, r, g in zip(ref_heads._fields, ref_heads, got_heads):
+        _assert_close(r, g, name)
+    for r, g in zip(ref_zs, got_zs):
+        _assert_close(r, g)
+
+
+@pytest.mark.parametrize(
+    "b,s,p,d,w", [(256, 32, 8, 4, 1024), (128, 8, 10, 2, 512), (512, 32, 8, 4, 1024)]
+)
+def test_sketch_batch_delta_equal_reference(rng, b, s, p, d, w):
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    # Out-of-slice ids on both sides, as a sketch-sharded shard sees them.
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    ref = jfused.sketch_batch_delta(*_jax_args(batch), impl="xla", **kw)
+    got = fused.sketch_batch_delta(*_torch_args(batch), impl="xla", **kw)
+    np.testing.assert_array_equal(np.asarray(ref.hll), got.hll.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.cms), got.cms.numpy())
+    _assert_close(ref.stats, got.stats)
+
+
+def test_sketch_batch_delta_kernel_branch_names_k3(rng):
+    batch = _batch(rng, 64, 8, 4, 512)
+    with pytest.raises(NotImplementedError, match="_delta_kernel"):
+        fused.sketch_batch_delta(*_torch_args(batch), num_services=8, hll_p=8, cms_width=512, impl="pallas")
+
+
+@pytest.mark.parametrize("ref_impl", ["xla", "interpret"])
+@pytest.mark.parametrize("impl", ["xla", "interpret", "pallas"])
+@pytest.mark.parametrize("b,s,p,d,w", [(256, 32, 8, 4, 1024), (128, 8, 10, 2, 512)])
+def test_sketch_batch_update_equal_reference(rng, ref_impl, impl, b, s, p, d, w):
+    """Banks bit-exact, stats within tolerance, against the reference's
+    composed path and its Pallas kernel in interpret mode. The port's
+    ``"pallas"`` on a CPU tensor is the kernel wrapper's plain version."""
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    hll_cur = rng.integers(0, 20, size=(3, s, 1 << p)).astype(np.int32)
+    cms_cur = rng.integers(0, 1000, size=(3, d, w)).astype(np.int32)
+    ref = jfused.sketch_batch_update(
+        jnp.asarray(hll_cur), jnp.asarray(cms_cur), *_jax_args(batch), impl=ref_impl, **kw
+    )
+    got_hll, got_cms = torch.from_numpy(hll_cur.copy()), torch.from_numpy(cms_cur.copy())
+    got = fused.sketch_batch_update(got_hll, got_cms, *_torch_args(batch), impl=impl, **kw)
+    assert got[0] is got_hll and got[1] is got_cms  # updated in place
+    np.testing.assert_array_equal(np.asarray(ref[0]), got_hll.numpy())
+    np.testing.assert_array_equal(np.asarray(ref[1]), got_cms.numpy())
+    _assert_close(ref[2], got[2])
+
+
+@pytest.mark.parametrize("ref_impl", ["xla", "interpret"])
+@pytest.mark.parametrize("impl", ["xla", "interpret", "pallas"])
+def test_sketch_batch_update_with_heads_equal_reference(rng, ref_impl, impl):
+    b, s, p, d, w = 256, 8, 8, 4, 512
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    hll_cur = rng.integers(0, 20, size=(3, s, 1 << p)).astype(np.int32)
+    cms_cur = rng.integers(0, 1000, size=(3, d, w)).astype(np.int32)
+    heads = _heads_np(rng, s)
+    ref = jfused.sketch_batch_update(
+        jnp.asarray(hll_cur), jnp.asarray(cms_cur), *_jax_args(batch), impl=ref_impl,
+        heads=jfused.HeadState(**{k: jnp.asarray(v) for k, v in heads.items()}),
+        dt=jnp.float32(0.05), step_pos=jnp.asarray(True), **HEAD_KW, **kw,
+    )
+    got_heads = fused.HeadState(**{k: torch.from_numpy(v.copy()) for k, v in heads.items()})
+    got = fused.sketch_batch_update(
+        torch.from_numpy(hll_cur.copy()), torch.from_numpy(cms_cur.copy()),
+        *_torch_args(batch), impl=impl, heads=got_heads, dt=0.05, step_pos=True,
+        **HEAD_KW, **kw,
+    )
+    np.testing.assert_array_equal(np.asarray(ref[0]), got[0].numpy())
+    np.testing.assert_array_equal(np.asarray(ref[1]), got[1].numpy())
+    _assert_close(ref[2], got[2])
+    for name, r, g in zip(ref[3]._fields, ref[3], got_heads):
+        _assert_close(r, g, name)
+    for r, g in zip(ref[4], got[4]):
+        _assert_close(r, g)
+
+
+def test_sketch_batch_update_heads_require_constants(rng):
+    batch = _batch(rng, 64, 8, 4, 512)
+    heads = fused.HeadState(**{k: torch.from_numpy(v) for k, v in _heads_np(rng, 8).items()})
+    with pytest.raises(TypeError, match="requires"):
+        fused.sketch_batch_update(
+            torch.zeros((3, 8, 256), dtype=torch.int32),
+            torch.zeros((3, 4, 512), dtype=torch.int32),
+            *_torch_args(batch), num_services=8, hll_p=8, cms_width=512, heads=heads,
+        )
+
+
+def test_resolve_impl_by_device():
+    assert fused.resolve_impl(None, torch.device("cuda")) == "pallas"
+    assert fused.resolve_impl(None, torch.device("cpu")) == "xla"
+    assert fused.resolve_impl("interpret", torch.device("cuda")) == "interpret"
+    with pytest.raises(ValueError):
+        fused.resolve_impl("cuda", torch.device("cpu"))
+
+
+# -- the port stands alone ----------------------------------------------
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = sorted((root / "opentelemetry_demo_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "opentelemetry_demo_tpu"), (
+                f"{path.relative_to(root)} imports {mod}"
+            )
+
+
+# -- kernels on the card --------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [2048, 8192])
+def test_fused_update_kernel_matches_plain(rng, cuda_device, b):
+    s, p, d, w = 32, 12, 4, 8192
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    args = [t.to(cuda_device) for t in _torch_args(batch)]
+    hll_bank = torch.from_numpy(rng.integers(0, 20, (3, 2, s, 1 << p)).astype(np.int32)).to(cuda_device)
+    cms_bank = torch.from_numpy(rng.integers(0, 99, (3, 2, d, w)).astype(np.int32)).to(cuda_device)
+    heads = _heads_np(rng, s)
+    outs = []
+    for impl in ("pallas", "interpret"):
+        hb, cb = hll_bank.clone(), cms_bank.clone()
+        hs = fused.HeadState(**{k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in heads.items()})
+        out = fused.sketch_batch_update(
+            hb[:, 0], cb[:, 0], *args, num_services=s, hll_p=p, cms_width=w, impl=impl,
+            heads=hs, dt=torch.tensor(0.25, device=cuda_device),
+            step_pos=torch.tensor(3, dtype=torch.int32, device=cuda_device), **HEAD_KW,
+        )
+        torch.cuda.synchronize()
+        outs.append((hb.cpu(), cb.cpu(), out[2].cpu(), [h.cpu() for h in hs], [z.cpu() for z in out[4]]))
+    (h1, c1, s1, hd1, z1), (h2, c2, s2, hd2, z2) = outs
+    assert torch.equal(h1, h2) and torch.equal(c1, c2)
+    _assert_close(s2, s1)
+    for a, b_ in zip(hd2 + z2, hd1 + z1):
+        _assert_close(a, b_)
+
+
+@pytest.mark.gpu
+def test_cms_hist_kernel_matches_plain(rng, cuda_device):
+    n_bins = 4 * 8192
+    keys = torch.from_numpy(rng.integers(0, n_bins + 1, 4 * 65536).astype(np.int32)).to(cuda_device)
+    before = _kernels.LAUNCHES["cms_hist"]
+    got = cms.cms_hist(keys, n_bins)
+    assert _kernels.LAUNCHES["cms_hist"] == before + 1
+    assert torch.equal(got.cpu(), cms.cms_hist_plain(keys.cpu(), n_bins))
