@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl-cards 4   # the four-rank mesh leg over NCCL, one card per rank
 
 Builds the hand-written kernels from ``opentelemetry_demo_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the main path's shapes,
@@ -9,9 +10,24 @@ drives the main path end to end (OTLP protobuf bodies → decode →
 ``SpanTensorizer`` → ``DetectorPipeline`` → reports) at the default
 ``DetectorConfig`` with an injected latency fault, at batch width 2048
 (``sketch_impl=None``: the fused-update kernel) and 65536
-(``sketch_impl="xla"``: the CMS-histogram kernel). It finishes with each
-kernel's time beside its plain version, a library call where one exists,
-and its memory bound.
+(``sketch_impl="xla"``: the CMS-histogram kernel).
+
+The mesh path follows (``parallel.make_sharded_step``, whose delta runs
+the sketch-delta kernel on every rank): a one-rank NCCL world against the
+single-device step at widths 2048 and 65536, then a four-rank gloo world
+on the one card (NCCL refuses two ranks on one device) as a (2 batch × 2
+sketch) mesh at global width 65536, with clean batches, a ×10 latency
+step on one service, and a short ring-merge replay. Integer banks must
+equal the single-device step's, batch replicas must be bit-identical,
+and the fault must flag on the first batch after onset and not before.
+
+It finishes with each kernel's time beside its plain version, a library
+call where one exists, and its memory bound.
+
+With ``--nccl-cards 4`` it runs only the four-rank mesh leg, each rank
+on its own card over NCCL, against the single-device step: the path that
+exists only across cards. Its record goes to
+``chiprun_out/chip_smoke_nccl.json``.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero at once. The last line
@@ -22,6 +38,7 @@ limit. The build log goes to ``chiprun_out/chip_smoke_build.log``.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -173,6 +190,19 @@ def head_kw(cfg) -> dict:
     )
 
 
+def delta_bound_bytes(lanes, s: int, cfg) -> int:
+    """Bytes the sketch delta must move: each lane read once (svc, log-lat,
+    error, trace hi/lo, valid, D row indices) and each output written once
+    whole (the delta is cleared and written: S×R registers, D×Wc counters,
+    4×S stats)."""
+    b, d = lanes["svc"].shape[0], lanes["cidx"].shape[0]
+    return b * (4 * 5 + 1 + 4 * d) + (s * (1 << cfg.hll_p) + d * cfg.cms_width + 4 * s) * 4
+
+
+def delta_args(lanes):
+    return tuple(lanes[k] for k in ("svc", "log_lat", "is_error", "trace_hi", "trace_lo", "cidx", "valid"))
+
+
 def fused_bound_bytes(lanes, cfg) -> int:
     """Bytes the fused update must move for this batch: each lane read once,
     each bank cell the batch touches read and written once in each
@@ -260,6 +290,172 @@ def phase_cms_hist(cfg, device, results):
     check(int(got.sum()) == int((keys < n_bins).sum()), "cms_hist lost keys")
     print(f"cms_hist {keys.numel()} keys, {n_bins} bins: exact")
     results["cms_hist"] = {"max_abs_err": 0.0}
+
+
+def phase_sketch_delta(cfg, device, results):
+    """K3 against its plain version at B = 2048 and 65536, on one rank's
+    full width (S=32, D=4) and a (2 × 2) mesh rank's slice (S=16, D=2)."""
+    from opentelemetry_demo_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for b in (2048, 65536):
+        for s, d in ((32, 4), (16, 2)):
+            c = cfg._replace(num_services=s, cms_depth=d)
+            args = delta_args(batch_lanes(rng, c, b, device))
+            kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
+            got = fused.sketch_delta(*args, **kw)
+            want = fused.sketch_delta_plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got.hll, want.hll), f"sketch_delta HLL differs at B={b} S={s} D={d}")
+            check(torch.equal(got.cms, want.cms), f"sketch_delta CMS differs at B={b} S={s} D={d}")
+            check(int(got.hll.count_nonzero()) > 0, "sketch_delta HLL empty")
+            check(close(got.stats, want.stats), f"sketch_delta stats differ at B={b}: {max_err(got.stats, want.stats)}")
+            worst = max(worst, max_err(got.stats, want.stats))
+            print(f"sketch_delta B={b} S={s} D={d}: integers exact, stats max abs err "
+                  f"{max_err(got.stats, want.stats):.3g}")
+    results["sketch_delta"] = {"max_abs_err": worst}
+
+
+def single_device(cfg, stream, rotates, device, keep=()):
+    """The single-device step over a stream on the card: ``(final state,
+    reports, {step: state after it})`` as numpy."""
+    from opentelemetry_demo_tpu_torch.models.detector import (
+        DetectorReport, detector_init, detector_step, state_to_numpy,
+    )
+
+    state = detector_init(cfg, device)
+    dt = torch.tensor(DT_S, device=device)
+    reports, kept = [], {}
+    for k, (batch, rot) in enumerate(zip(stream, rotates)):
+        lanes = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(device)
+                 for x in batch]
+        state, rep = detector_step(cfg, state, *lanes, dt, torch.from_numpy(rot).to(device))
+        reports.append(DetectorReport(*(t.cpu().numpy() for t in rep)))
+        if k + 1 in keep:
+            kept[k + 1] = state_to_numpy(state)
+    return state_to_numpy(state), reports, kept
+
+
+def compare_to_single(got_state, got_reports, ref_state, ref_reports, what, skip=()):
+    """Integer banks and svc_count exact, flags identical, floats within
+    the sharded step's tolerances (stats summed across ranks in another
+    order: state rtol 1e-4 / atol 1e-4, report rtol 1e-3 / atol 1e-3).
+    Returns the largest float difference."""
+    worst = 0.0
+    for name in ("hll_bank", "cms_bank", "step_idx"):
+        check(np.array_equal(getattr(got_state, name), getattr(ref_state, name)), f"{what}: {name} differs")
+    for name in got_state._fields:
+        a, b = getattr(got_state, name), getattr(ref_state, name)
+        if a.dtype.kind == "f":
+            check(np.allclose(a, b, rtol=1e-4, atol=1e-4), f"{what}: state {name} differs")
+            worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()))
+    check(len(got_reports) == len(ref_reports), f"{what}: {len(got_reports)} reports")
+    for k, (g, r) in enumerate(zip(got_reports, ref_reports)):
+        check(np.array_equal(g.svc_count, r.svc_count), f"{what}: svc_count differs at step {k}")
+        check(np.array_equal(g.flags, r.flags), f"{what}: flags differ at step {k}")
+        for name in ("lat_z", "err_z", "rate_z", "card_z", "card_est", "hh_ratio", "cusum"):
+            if name in skip:
+                continue
+            a, b = getattr(g, name), getattr(r, name)
+            check(np.allclose(a, b, rtol=1e-3, atol=1e-3), f"{what}: {name} differs at step {k}")
+            worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()))
+    return worst
+
+
+def mesh_warmup(cfg, width):
+    """A short scenario each world replays first, so the timed replays
+    exclude first-use costs (communicators, CUDA context)."""
+    from opentelemetry_demo_tpu_torch.parallel import launch
+
+    stream = launch.SyntheticStream(seed=19, n_steps=2, width=width, num_services=cfg.num_services)
+    return launch.Scenario(cfg, stream, launch.window_rotations(cfg.windows_s, 2, DT_S), DT_S)
+
+
+def phase_mesh_one_rank(cfg, device, widths=(2048, 65536), steps=(8, 6)):
+    """A one-rank NCCL world against the single-device step: any comm but
+    NO_COMM takes the delta path, so the 1 × 1 mesh runs K3 at full
+    width."""
+    from opentelemetry_demo_tpu_torch.parallel import launch
+
+    scen = []
+    for i, (width, n) in enumerate(zip(widths, steps)):
+        stream = launch.SyntheticStream(seed=20 + i, n_steps=n, width=width, num_services=cfg.num_services)
+        scen.append(launch.Scenario(cfg, stream, launch.window_rotations(cfg.windows_s, n, DT_S), DT_S))
+    t0 = time.perf_counter()
+    (out,) = launch.run_world(launch.replay_sharded, 1, device.type, None, 300.0, (1, 1), device.type,
+                              [mesh_warmup(cfg, widths[0]), *scen])
+    world_s = time.perf_counter() - t0
+    legs = {}
+    for sc, got in zip(scen, out[1:]):
+        width, n = sc.batches.width, sc.batches.n_steps
+        ref_state, ref_reports, _ = single_device(cfg, sc.batches, sc.rotates, device)
+        err = compare_to_single(got["state"], got["reports"], ref_state, ref_reports, f"1-rank NCCL B={width}")
+        check(got["launches"]["sketch_delta"] == n, f"1-rank B={width}: sketch_delta launched {got['launches']}")
+        legs[f"nccl_1x1_B{width}"] = dict(world_s=world_s, steps=n, step_wall_ms=got["wall_s"] / n * 1e3,
+                                          launches=got["launches"], max_float_diff=err)
+        print(f"mesh 1-rank NCCL B={width}: {n} steps == single-device step (ints exact, floats "
+              f"≤ {err:.3g}); {got['wall_s'] / n * 1e3:.3f} ms/step wall; launches {got['launches']}")
+    return legs
+
+
+def phase_mesh_four_ranks(cfg, device, results, backend="gloo", width=65536,
+                          n_clean=24, n_fault=3, n_ring=4):
+    """A four-rank (2 batch × 2 sketch) world at global width ``width``:
+    clean batches, then a ×10 latency step on one service, and a short
+    ring-merge replay of the same start, against the single-device step.
+    With gloo the four ranks share the one card (NCCL refuses two ranks on
+    one device); with NCCL each rank takes its own card."""
+    from opentelemetry_demo_tpu_torch.parallel import launch
+
+    slow = 7
+    n = n_clean + n_fault
+    fault = launch.SyntheticStream(seed=30, n_steps=n, width=width, num_services=cfg.num_services,
+                                   fault_service=slow, fault_from=n_clean)
+    rot = launch.window_rotations(cfg.windows_s, n, DT_S)
+    ring = launch.SyntheticStream(seed=30, n_steps=n_ring, width=width, num_services=cfg.num_services)
+    scen = [launch.Scenario(cfg, fault, rot, DT_S),
+            launch.Scenario(cfg, ring, rot[:n_ring], DT_S, "ring")]
+    t0 = time.perf_counter()
+    out = launch.run_world(launch.replay_sharded, 4, device.type, backend, 400.0, (2, 2), device.type,
+                           [mesh_warmup(cfg, width), *scen])
+    out = [rank_out[1:] for rank_out in out]
+    world_s = time.perf_counter() - t0
+    what = f"4-rank {backend} (2x2) B={width}"
+    ref_state, ref_reports, kept = single_device(cfg, fault, rot, device, keep=(n_ring,))
+    got = out[0][0]
+    # Heavy-hitter candidates are sampled per batch shard past the query
+    # cap (16384 of each shard's 32768 lanes, against 16384 of 65536 on
+    # one device), so hh_ratio is a different sample and not compared.
+    err = compare_to_single(got["state"], got["reports"], ref_state, ref_reports, what, skip=("hh_ratio",))
+    ring_got = out[0][1]["state"]
+    for name in ("hll_bank", "cms_bank"):
+        check(np.array_equal(getattr(ring_got, name), getattr(kept[n_ring], name)), f"ring merge: {name} differs")
+    for r, rank_out in enumerate(out):
+        for sc_out in rank_out:
+            check(sc_out["launches"]["sketch_delta"] > 0, f"rank {r}: sketch_delta never launched")
+        replica = out[r ^ 2][0]  # same sketch coordinate, other batch shard
+        check(rank_out[0]["coords"]["sketch"] == replica["coords"]["sketch"], "replica pairing")
+        for name, a, b in zip(replica["local_state"]._fields, rank_out[0]["local_state"], replica["local_state"]):
+            check(a.tobytes() == b.tobytes(), f"batch replicas differ in {name}")
+        for ra, rb in zip(rank_out[0]["local_reports"], replica["local_reports"]):
+            check(all(a.tobytes() == b.tobytes() for a, b in zip(ra, rb)), "batch replica reports differ")
+    flags = [rep.flags for rep in got["reports"]]
+    check(not any(f.any() for f in flags[:n_clean]), "flags before onset on the mesh")
+    check(bool(flags[n_clean][slow]) and int(flags[n_clean].sum()) == 1,
+          f"mesh: first batch after onset flags {np.flatnonzero(flags[n_clean])}, not [{slow}]")
+    launches = sum(rank_out[0]["launches"]["sketch_delta"] for rank_out in out)
+    check(launches == 4 * n, f"sketch_delta launched {launches} times on the mesh")
+    step_ms = [rank_out[0]["wall_s"] / n * 1e3 for rank_out in out]
+    print(f"mesh {what}: {n} steps == single-device step (ints exact, floats "
+          f"≤ {err:.3g}), replicas bit-identical, service {slow} flagged on the first batch after "
+          f"onset; ring merge banks exact; step wall ms per rank {[round(x, 3) for x in step_ms]}; "
+          f"sketch_delta launches {launches}; world {world_s:.1f} s")
+    results["sketch_delta"]["launches"] = launches
+    return {f"{backend}_2x2_B{width}": dict(
+        world_s=world_s, steps=n, step_wall_ms_per_rank=step_ms,
+        launches_per_rank=[ro[0]["launches"] for ro in out], max_float_diff=err, ttd_batches=1,
+    )}
 
 
 def phase_detector_vs_cpu(device):
@@ -443,6 +639,31 @@ def phase_times(cfg, device, results):
     # The yardstick: one PyTorch call computing the same histogram.
     k2["library"] = time_ms(lambda: torch.bincount(keys, minlength=n_bins + 1)[:n_bins], 50)
     k2["bound_ms"] = (keys.numel() * 4 + n_bins * 4) / HBM_BYTES_PER_S * 1e3
+
+    # K3 at a (2 × 2) mesh rank's shape: 32768 lanes, S=16, D=2.
+    c = cfg._replace(num_services=16, cms_depth=2)
+    lanes = batch_lanes(rng, c, 32768, device)
+    args = delta_args(lanes)
+    kw = dict(num_services=16, hll_p=c.hll_p, cms_width=c.cms_width)
+    plain = (lambda: fused.sketch_delta_plain(*args, **kw), 20)
+    kernel = (lambda: fused.sketch_delta(*args, **kw), 200)
+    k3 = results["sketch_delta"]
+    k3["turns"] = [time_ms(*f) for f in (plain, kernel, kernel, plain)]
+    k3["library"] = (None, None)
+    k3["bound_ms"] = delta_bound_bytes(lanes, 16, c) / HBM_BYTES_PER_S * 1e3
+    # And at one rank's full width, for the record.
+    lanes = batch_lanes(rng, cfg, 65536, device)
+    args_full = delta_args(lanes)
+    kw_full = dict(num_services=cfg.num_services, hll_p=cfg.hll_p, cms_width=cfg.cms_width)
+    k3["full_width"] = dict(
+        turns=[time_ms(*f) for f in (
+            (lambda: fused.sketch_delta_plain(*args_full, **kw_full), 20),
+            (lambda: fused.sketch_delta(*args_full, **kw_full), 200),
+        )],
+        bound_ms=delta_bound_bytes(lanes, cfg.num_services, cfg) / HBM_BYTES_PER_S * 1e3,
+    )
+    print(f"time sketch_delta B=65536 S=32 D=4: (device, wall) plain {k3['full_width']['turns'][0]}, "
+          f"kernel {k3['full_width']['turns'][1]}; bound {k3['full_width']['bound_ms']:.6f} ms")
     for name, r in results.items():
         (p1, _), (k1_, _), (k2_, _), (p2, _) = r["turns"]
         check(None not in (p1, k1_, k2_, p2), f"{name}: a device time could not be taken")
@@ -456,10 +677,42 @@ def phase_times(cfg, device, results):
               f"library (device, wall) {r['library']}; bound {r['bound_ms']:.6f} ms")
 
 
+def mesh_on_cards(n_cards: int) -> int:
+    """The four-rank mesh leg with NCCL between ``n_cards`` cards, held
+    against the single-device step on card 0; no other phase."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+
+    check(n_cards == 4, "the mesh leg is a (2 × 2) layout of four ranks")
+    check(torch.cuda.device_count() >= n_cards, f"{torch.cuda.device_count()} cards, not {n_cards}")
+    t_start = time.perf_counter()
+    card = gpu_line()
+    print(f"card: {card} (x{torch.cuda.device_count()}); torch {torch.__version__} cuda {torch.version.cuda}")
+    phase_build()
+    results = {"sketch_delta": {}}
+    mesh = phase_mesh_four_ranks(DetectorConfig(), torch.device("cuda"), results, backend="nccl")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_nccl.json").write_text(json.dumps(
+        {"card": card, "count": torch.cuda.device_count(), "mesh": mesh,
+         "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the card.")
+    ap.add_argument("--nccl-cards", type=int, default=0,
+                    help="run only the four-rank mesh leg over NCCL, one card per rank")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.nccl_cards:
+        return mesh_on_cards(args.nccl_cards)
     # The composed path's segment stats are a float32 matmul: keep it in
     # full float32 (PyTorch's default, stated here).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -476,6 +729,7 @@ def main() -> int:
     phase_build()
     phase_fused_update(cfg, device, results)
     phase_cms_hist(cfg, device, results)
+    phase_sketch_delta(cfg, device, results)
     phase_detector_vs_cpu(device)
     e2e = [
         phase_end_to_end(device, None, 2048, n_warm=40, n_fault=4, bodies_per_batch=1, results=results),
@@ -490,12 +744,15 @@ def main() -> int:
         print(f"step B={leg['width']} impl={leg['impl']}: device {leg['step_device_ms']} ms, "
               f"wall {leg['step_wall_ms']:.4f} ms; device busy share of the e2e run "
               f"{leg['device_busy_share']}")
+    mesh = phase_mesh_one_rank(cfg, device)
+    mesh.update(phase_mesh_four_ranks(cfg, device, results))
     phase_times(cfg, device, results)
 
     src = "opentelemetry_demo_tpu_torch/csrc"
     meta = {
         "fused_update": ("cuda", f"{src}/fused_update.cu", "opentelemetry_demo_tpu/ops/fused.py:317"),
         "cms_hist": ("cuda", f"{src}/cms_hist.cu", "opentelemetry_demo_tpu/ops/cms.py:181"),
+        "sketch_delta": ("cuda", f"{src}/sketch_delta.cu", "opentelemetry_demo_tpu/ops/fused.py:243"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -508,7 +765,7 @@ def main() -> int:
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e,
+        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -211,8 +211,10 @@ def state_from_numpy(
 
 def state_to_numpy(state: DetectorState) -> DetectorState:
     """This package's state → numpy arrays with the same fields, dtypes
-    and bits (for the reference's ``DetectorState(**...)``)."""
-    return DetectorState(*(t.detach().cpu().numpy() for t in state))
+    and bits (for the reference's ``DetectorState(**...)``). The arrays
+    are copies: the step updates the state in place, and a snapshot must
+    not move with it."""
+    return DetectorState(*(t.detach().to("cpu", copy=True).numpy() for t in state))
 
 
 def _rotate(bank: torch.Tensor, mask: torch.Tensor) -> None:
@@ -243,14 +245,26 @@ def detector_step(
     Order is fixed, as in the reference: (1) harvest the cardinality of
     windows that just completed into the card EWMA, (2) rotate banks
     where ``rotate`` is set, (3) absorb the batch into every current
-    bank and the EWMA/CUSUM heads (``fused.sketch_batch_update``), then
-    heavy hitters and flags. Nothing here reads a device value on the
-    host, so the step runs asynchronously on the card.
+    bank and the EWMA/CUSUM heads, then heavy hitters and flags. Nothing
+    here reads a device value on the host, so the step runs
+    asynchronously on the card.
+
+    Sharded (``parallel.make_sharded_step``): the same function runs on
+    every rank with a real ``comm``. The state then holds this rank's
+    slice (service axis of HLL and heads, depth axis of CMS) and the
+    batch arrays this rank's batch shard; service and row ids are global
+    on the wire and localised here through ``comm.sketch_index()``. Any
+    comm but :data:`NO_COMM` — even on a 1 × 1 mesh — takes the delta
+    path: the batch's standalone delta crosses the batch-axis reductions
+    before it is merged into the banks and advances the heads.
     """
-    if comm is not NO_COMM:
-        raise NotImplementedError("the multi-device step is not ported yet")
+    # Local shard geometry, from the state itself.
     s_axis = state.lat_mean.shape[0]
-    svc = svc.to(torch.int64)
+    d_local = state.cms_bank.shape[-2]
+    shard = comm.sketch_index()
+    # Global → local service ids; out-of-slice ids become s_axis, which
+    # every scatter drops and every one-hot misses.
+    svc = svc.to(torch.int64) - shard * s_axis
     svc = torch.where((svc >= 0) & (svc < s_axis), svc, s_axis)
     valid_f = valid.to(torch.float32)
 
@@ -281,7 +295,11 @@ def detector_step(
     # The latency head works in log space: a k× degradation is a clean
     # +ln(k) shift at every timescale.
     log_lat = torch.log1p(torch.clamp(lat_us, min=0.0))
+    # CMS rows are hash-independent, so the sketch axis shards the depth:
+    # this rank updates its own rows with the matching global row hashes.
     cidx = cms.cms_indices(attr_hi, attr_lo, config.cms_depth, config.cms_width)
+    cidx = cidx[shard * d_local:(shard + 1) * d_local]
+    impl = fused.resolve_impl(config.sketch_impl, svc.device)
     heads = fused.HeadState(
         lat_mean=state.lat_mean,
         lat_var=state.lat_var,
@@ -291,25 +309,7 @@ def detector_step(
         cusum=state.cusum,
         obs_batches=state.obs_batches,
     )
-    # The step counter is the rate gate (step 0 carries a meaningless
-    # dt); it stays on the device.
-    _, _, stats, _, (lat_z, err_z, rate_z) = fused.sketch_batch_update(
-        state.hll_bank[:, 0],
-        state.cms_bank[:, 0],
-        svc.to(torch.int32),
-        log_lat,
-        is_error,
-        trace_hi,
-        trace_lo,
-        cidx,
-        valid,
-        num_services=s_axis,
-        hll_p=config.hll_p,
-        cms_width=config.cms_width,
-        impl=fused.resolve_impl(config.sketch_impl, svc.device),
-        heads=heads,
-        dt=dt,
-        step_pos=state.step_idx,
+    head_kw = dict(
         taus_s=tuple(config.taus_s),
         warmup_batches=config.warmup_batches,
         z_warmup_batches=config.z_warmup_batches,
@@ -317,7 +317,49 @@ def detector_step(
         cusum_cap=config.cusum_cap,
         err_slack=config.err_slack,
     )
-    state.span_total[:, 0].add_(valid_f.sum())
+    lanes = (svc.to(torch.int32), log_lat, is_error, trace_hi, trace_lo, cidx, valid)
+    if comm is NO_COMM:
+        # One device: the batch folds into every current bank and the
+        # heads in one pass. The step counter is the rate gate (step 0
+        # carries a meaningless dt); it stays on the device.
+        _, _, stats, _, (lat_z, err_z, rate_z) = fused.sketch_batch_update(
+            state.hll_bank[:, 0],
+            state.cms_bank[:, 0],
+            *lanes,
+            num_services=s_axis,
+            hll_p=config.hll_p,
+            cms_width=config.cms_width,
+            impl=impl,
+            heads=heads,
+            dt=dt,
+            step_pos=state.step_idx,
+            **head_kw,
+        )
+        n_valid = valid_f.sum()
+    else:
+        # Sharded: deltas, not banks, cross the batch axis; then each rank
+        # merges the same reduced delta into its banks and heads.
+        delta = fused.sketch_batch_delta(
+            *lanes,
+            num_services=s_axis,
+            hll_p=config.hll_p,
+            cms_width=config.cms_width,
+            impl=impl,
+        )
+        hll_delta = comm.pmax_batch(delta.hll)
+        cms_delta = comm.psum_batch(delta.cms)
+        # Float merge: always direct (see Comm.psum_batch_f32).
+        stats = comm.psum_batch_f32(delta.stats)
+        hll_cur, cms_cur = state.hll_bank[:, 0], state.cms_bank[:, 0]
+        hll_cur.copy_(torch.maximum(hll_cur, hll_delta[None]))
+        cms_cur.add_(cms_delta[None])
+        n_valid = comm.psum_batch_f32(valid_f.sum().reshape(1))
+        new_heads, (lat_z, err_z, rate_z) = fused.head_update(
+            stats, heads, dt, state.step_idx, **head_kw
+        )
+        for dst, src in zip(heads, new_heads):
+            dst.copy_(src)
+    state.span_total[:, 0].add_(n_valid)
     cnt = stats[0]
 
     # ---- 3c. heavy hitters: max attr share of each current window ----
@@ -329,14 +371,17 @@ def detector_step(
         q_svc, q_valid, q_cidx = svc[q_idx], valid_f[q_idx], cidx[:, q_idx]
     else:
         q_svc, q_valid, q_cidx = svc, valid_f, cidx
-    counts = cms.cms_query(state.cms_bank[:, 0], q_cidx).to(torch.float32)  # [W#, BQ]
-    masked = counts * q_valid[None, :]
+    # Row-sharded CMS query: min over local rows, then across the sketch
+    # axis; batch shards each score their own spans, max-merged.
+    counts = comm.pmin_sketch(cms.cms_query(state.cms_bank[:, 0], q_cidx))
+    masked = counts.to(torch.float32) * q_valid[None, :]  # [W#, BQ]
     nw = counts.shape[0]
     per_svc_max = torch.zeros((nw, s_axis + 1), dtype=torch.float32, device=svc.device)
     per_svc_max.scatter_reduce_(
         1, q_svc.expand(nw, -1), masked, reduce="amax", include_self=True
     )
-    per_svc_max = per_svc_max[:, :s_axis]  # column S: out-of-range lanes
+    # Column S holds out-of-range lanes.
+    per_svc_max = comm.pmax_batch(per_svc_max[:, :s_axis])
     hh_ratio = (
         per_svc_max / torch.clamp(state.span_total[:, 0], min=1.0)[:, None]
     ).T

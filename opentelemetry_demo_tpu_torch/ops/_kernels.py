@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes one plain C launcher (``<name>_launch``)
 that launches on the caller's stream and returns ``cudaGetLastError()``.
 This module compiles a source with ``nvcc`` for ``sm_90a`` at its first
 use, into ``build/torch_kernels/`` beside the package (the file name
-carries a hash of the source, so an edited kernel is rebuilt), loads it
-with ``ctypes``, and raises if a build or a launch fails. There is no
+carries a hash of the source and the shared ``csrc/*.cuh`` headers, so an
+edited kernel is rebuilt), loads it with ``ctypes``, and raises if a
+build or a launch fails. There is no
 fallback: a caller with a CUDA tensor gets the kernel or an exception.
 
 Each launcher here adds one to ``LAUNCHES[name]`` when it launches its
@@ -29,12 +30,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
-# Extra nvcc flags per kernel. The head epilogue of fused_update is built
-# without FMA contraction so it rounds once per operation, as the plain
-# PyTorch version does.
+# Extra nvcc flags per kernel. The stats partials and the head epilogue of
+# the sketch kernels are built without FMA contraction so they round once
+# per operation, as the plain PyTorch versions do.
 _FLAGS = {
     "fused_update": ["--fmad=false"],
     "cms_hist": [],
+    "sketch_delta": ["--fmad=false"],
 }
 
 _P = ctypes.c_void_p
@@ -55,7 +57,16 @@ _ARGTYPES = {
         _P,  # stream
     ],
     "cms_hist": [_P, _L, _I, _P, _I, _P],  # keys n n_bins counts n_blocks stream
+    "sketch_delta": [
+        _P, _P, _P, _P, _P, _P, _P,  # svc log_lat is_error hi lo cidx valid
+        _I, _I, _I, _I, _I,  # B S p D Wc
+        _P, _P, _P, _I, _P,  # hll cms partials n_blocks stats
+        _P,  # stream
+    ],
 }
+
+# Largest dynamic shared memory an H100 block may opt in to, in bytes.
+SMEM_LIMIT = 232448
 
 LAUNCHES = {name: 0 for name in _ARGTYPES}
 BUILD_LOG: dict[str, str] = {}
@@ -81,7 +92,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(
+        p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    )
     key = hashlib.sha256(src + " ".join(_FLAGS[name]).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
@@ -159,10 +172,10 @@ def _stream(device: torch.device) -> int:
 def launch_cms_hist(keys: torch.Tensor, n_bins: int, counts: torch.Tensor) -> None:
     """counts[n_bins] += histogram of ``keys`` (int32, contiguous, CUDA)."""
     smem = n_bins * 4
-    if smem > 232448:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"cms_hist keeps {n_bins} bins in shared memory ({smem} B); "
-            "an H100 block has at most 232448 B"
+            f"an H100 block has at most {SMEM_LIMIT} B"
         )
     n = keys.numel()
     n_blocks = max(1, min(132, -(-n // 16384)))
@@ -206,3 +219,22 @@ def launch_fused_update(
     )
     _check("fused_update", rc)
     LAUNCHES["fused_update"] += 1
+
+
+def launch_sketch_delta(
+    *, svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid,
+    num_services, hll_p, cms_width, hll, cms, partials, stats,
+) -> None:
+    """Clear ``hll``/``cms`` and launch the delta's sketch and stats
+    kernels on the current stream. Tensors are validated by the caller
+    (ops.fused)."""
+    fn = _lib("sketch_delta").sketch_delta_launch
+    rc = fn(
+        _ptr(svc), _ptr(log_lat), _ptr(is_error), _ptr(trace_hi),
+        _ptr(trace_lo), _ptr(cidx), _ptr(valid),
+        svc.shape[0], num_services, hll_p, cidx.shape[0], cms_width,
+        _ptr(hll), _ptr(cms), _ptr(partials), partials.shape[0], _ptr(stats),
+        _stream(svc.device),
+    )
+    _check("sketch_delta", rc)
+    LAUNCHES["sketch_delta"] += 1

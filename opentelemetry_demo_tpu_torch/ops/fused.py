@@ -19,8 +19,15 @@ and, given ``heads``, advances the heads too. Its impls:
 - ``"interpret"``: :func:`fused_update_plain`, the plain PyTorch version
   of the kernel, on any device.
 
-Unlike the reference, which is functional, these update the banks (and
-the heads) **in place** and return them.
+:func:`sketch_batch_delta` reduces a batch to its standalone delta from
+zero, the quantity the sharded step merges across the batch axis. Its
+``"pallas"`` impl is :func:`sketch_delta` (on a CUDA tensor the kernel
+``csrc/sketch_delta.cu``, on a CPU tensor :func:`sketch_delta_plain`),
+``"interpret"`` the plain version on any device, ``"xla"`` the composed
+path.
+
+Unlike the reference, which is functional, the batch updates change the
+banks (and the heads) **in place** and return them.
 """
 
 from __future__ import annotations
@@ -175,20 +182,21 @@ def sketch_batch_delta(
     num_services: int,
     hll_p: int = hll.HLL_P,
     cms_width: int = cms.CMS_WIDTH,
-    impl: str = "xla",
+    impl: str = "xla",  # "xla" | "pallas" | "interpret"
 ) -> SketchDelta:
-    """Reduce one span batch to its mergeable sketch delta (the composed
-    path). HLL counts valid lanes with ``0 <= svc < S``; CMS counts every
-    valid lane; stats are per service.
-
-    Only ``impl="xla"`` exists: the standalone delta kernel of the mesh
-    path is not ported yet."""
+    """Reduce one span batch to its mergeable sketch delta. HLL counts
+    valid lanes with ``0 <= svc < S``; CMS counts every valid lane; stats
+    are per service. ``"pallas"`` is the :func:`sketch_delta` kernel
+    wrapper, ``"interpret"`` its plain version, ``"xla"`` the composed
+    path (scatter-max, the CMS histogram, segment sums)."""
+    kw = dict(num_services=num_services, hll_p=hll_p, cms_width=cms_width)
+    lanes = (svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid)
+    if impl == "pallas":
+        return sketch_delta(*lanes, **kw)
+    if impl == "interpret":
+        return sketch_delta_plain(*lanes, **kw)
     if impl != "xla":
-        raise NotImplementedError(
-            f"sketch_batch_delta impl={impl!r} needs kernel K3 "
-            "(opentelemetry_demo_tpu/ops/fused.py::_delta_kernel), which "
-            "is not ported yet; use impl='xla'"
-        )
+        raise ValueError(f"unknown sketch impl {impl!r}")
     s = num_services
     r = 1 << hll_p
     svc = svc.to(torch.int64)
@@ -211,6 +219,51 @@ def sketch_batch_delta(
     _, err_sum, _ = ewma.segment_stats(is_error, svc, s, valid=valid)
     stats = torch.stack([cnt, lat_sum, lat_sumsq, err_sum], dim=0)
     return SketchDelta(hll=hll_d, cms=cms_d, stats=stats)
+
+
+def sketch_delta_plain(
+    svc: torch.Tensor,
+    log_lat: torch.Tensor,
+    is_error: torch.Tensor,
+    trace_hi: torch.Tensor,
+    trace_lo: torch.Tensor,
+    cidx: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    num_services: int,
+    hll_p: int,
+    cms_width: int,
+) -> SketchDelta:
+    """Plain PyTorch version of the ``sketch_delta`` kernel, in the
+    reference kernel's terms: rank 0 for invalid or out-of-slice lanes,
+    flat cell ``where(in_slice, svc, 0)·R + bucket``, CMS weight
+    ``valid``, the stats one-hot dropping ``svc ∉ [0, S)``, and features
+    premasked by ``valid``."""
+    s = num_services
+    r = 1 << hll_p
+    dev = svc.device
+    svc = svc.to(torch.int64)
+    in_slice = (svc >= 0) & (svc < s)
+    bucket, rank = hll.hll_indices(trace_hi, trace_lo, p=hll_p)
+    rank = torch.where(valid & in_slice, rank, 0)
+    flat = torch.where(in_slice, svc, 0) * r + bucket.to(torch.int64)
+    hll_d = torch.zeros(s * r, dtype=torch.int32, device=dev)
+    hll_d.scatter_reduce_(0, flat, rank, reduce="amax", include_self=True)
+
+    d = cidx.shape[0]
+    keys = cidx.to(torch.int64) + torch.arange(d, device=dev)[:, None] * cms_width
+    ones = valid.to(torch.int32).expand(d, -1)
+    cms_d = torch.zeros(d * cms_width, dtype=torch.int32, device=dev)
+    cms_d.index_add_(0, keys.reshape(-1), ones.reshape(-1))
+
+    valid_f = valid.to(torch.float32)
+    ll = log_lat.to(torch.float32) * valid_f
+    feats = torch.stack([valid_f, ll, ll * ll, is_error.to(torch.float32) * valid_f])
+    seg = torch.where(valid & in_slice, svc, s)
+    onehot = (torch.arange(s, device=dev)[None, :] == seg[:, None]).to(torch.float32)
+    return SketchDelta(
+        hll=hll_d.view(s, r), cms=cms_d.view(d, cms_width), stats=feats @ onehot
+    )
 
 
 def _copy_heads(heads: HeadState, new: HeadState) -> None:
@@ -236,61 +289,59 @@ def fused_update_plain(
     step_pos: torch.Tensor | None = None,
     statics: dict | None = None,
 ):
-    """Plain PyTorch version of the ``fused_update`` kernel: the same
-    function, op by op. Returns ``stats`` or, with ``heads`` (advanced
-    in place), ``(stats, (lat_z, err_z, rate_z))``."""
-    s = num_services
-    r = 1 << hll_p
-    svc = svc.to(torch.int64)
-    in_slice = (svc >= 0) & (svc < s)
-    bucket, rank = hll.hll_indices(trace_hi, trace_lo, p=hll_p)
-    rank = torch.where(valid & in_slice, rank, 0)
-    flat = torch.where(in_slice, svc, 0) * r + bucket.to(torch.int64)
-    hll_d = torch.zeros(s * r, dtype=torch.int32, device=svc.device)
-    hll_d.scatter_reduce_(0, flat, rank, reduce="amax", include_self=True)
-    hll_cur.copy_(torch.maximum(hll_cur, hll_d.view(s, r)[None]))
-
-    d, wc = cidx.shape[0], cms_cur.shape[-1]
-    keys = cidx.to(torch.int64) + torch.arange(d, device=svc.device)[:, None] * wc
-    ones = valid.to(torch.int32).expand(d, -1)
-    cms_d = torch.zeros(d * wc, dtype=torch.int32, device=svc.device)
-    cms_d.index_add_(0, keys.reshape(-1), ones.reshape(-1))
-    cms_cur.add_(cms_d.view(d, wc)[None])
-
-    valid_f = valid.to(torch.float32)
-    ll = log_lat.to(torch.float32) * valid_f
-    feats = torch.stack([valid_f, ll, ll * ll, is_error.to(torch.float32) * valid_f])
-    seg = torch.where(valid & in_slice, svc, s)
-    onehot = (torch.arange(s, device=svc.device)[None, :] == seg[:, None]).to(
-        torch.float32
+    """Plain PyTorch version of the ``fused_update`` kernel: the delta's
+    plain version merged into every bank. Returns ``stats`` or, with
+    ``heads`` (advanced in place), ``(stats, (lat_z, err_z, rate_z))``."""
+    delta = sketch_delta_plain(
+        svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid,
+        num_services=num_services, hll_p=hll_p, cms_width=cms_cur.shape[-1],
     )
-    stats = feats @ onehot  # [4, S]
+    hll_cur.copy_(torch.maximum(hll_cur, delta.hll[None]))
+    cms_cur.add_(delta.cms[None])
     if heads is None:
-        return stats
-    new_heads, zs = head_update(stats, heads, dt, step_pos, **statics)
+        return delta.stats
+    new_heads, zs = head_update(delta.stats, heads, dt, step_pos, **statics)
     _copy_heads(heads, new_heads)
-    return stats, zs
+    return delta.stats, zs
+
+
+def _check_lanes(name, batch, cidx, hll_p, cms_width) -> None:
+    """What both sketch kernels take: one device, contiguous 1-D lanes of
+    one length, int32 ``cidx[D, B]``, and D x Wc counters that fit a
+    block's shared memory."""
+    dev = batch[0].device
+    if any(t.device != dev for t in (*batch, cidx)):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    want = (torch.int32, torch.float32, torch.float32, torch.int32, torch.int32, torch.bool)
+    for lane, t, dtype in zip(
+        ("svc", "log_lat", "is_error", "trace_hi", "trace_lo", "valid"), batch, want
+    ):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: {lane} must be contiguous 1-D {dtype}")
+    b = batch[0].shape[0]
+    if any(t.shape[0] != b for t in batch) or cidx.dim() != 2 or cidx.shape[1] != b:
+        raise ValueError(f"{name}: batch lanes disagree in length")
+    if cidx.dtype != torch.int32 or not cidx.is_contiguous():
+        raise ValueError(f"{name}: cidx must be contiguous int32 [D, B]")
+    if not 1 <= hll_p <= 31:
+        raise ValueError(f"{name}: hll_p={hll_p} out of range")
+    if cidx.shape[0] * cms_width * 4 > _kernels.SMEM_LIMIT:
+        raise ValueError(
+            f"{name} keeps the D x Wc CMS counters in shared memory; "
+            f"an H100 block has at most {_kernels.SMEM_LIMIT} B"
+        )
+
+
+def _n_blocks(b: int) -> int:
+    """Blocks of 512 lanes, at most one per SM of the H100."""
+    return max(1, min(132, -(-b // 512)))
 
 
 def _check_kernel_args(hll_cur, cms_cur, batch, cidx, heads, hll_p) -> None:
     dev = hll_cur.device
-    tensors = [hll_cur, cms_cur, cidx, *batch] + list(heads or ())
-    if any(t.device != dev for t in tensors):
+    if any(t.device != dev for t in [cms_cur, batch[0], *(heads or ())]):
         raise ValueError("fused_update: all tensors must be on one device")
-    svc, log_lat, is_error, trace_hi, trace_lo, valid = batch
-    want = (torch.int32, torch.float32, torch.float32, torch.int32, torch.int32, torch.bool)
-    for name, t, dtype in zip(
-        ("svc", "log_lat", "is_error", "trace_hi", "trace_lo", "valid"), batch, want
-    ):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"fused_update: {name} must be contiguous 1-D {dtype}")
-    b = svc.shape[0]
-    if any(t.shape[0] != b for t in batch) or cidx.shape[1] != b:
-        raise ValueError("fused_update: batch lanes disagree in length")
-    if cidx.dtype != torch.int32 or not cidx.is_contiguous():
-        raise ValueError("fused_update: cidx must be contiguous int32 [D, B]")
-    if not 1 <= hll_p <= 31:
-        raise ValueError(f"fused_update: hll_p={hll_p} out of range")
+    _check_lanes("fused_update", batch, cidx, hll_p, cms_cur.shape[-1])
     for name, bank in (("hll_cur", hll_cur), ("cms_cur", cms_cur)):
         if (
             bank.dtype != torch.int32
@@ -306,11 +357,6 @@ def _check_kernel_args(hll_cur, cms_cur, batch, cidx, heads, hll_p) -> None:
         raise ValueError("fused_update: bank shapes disagree with hll_p / cidx")
     if hll_cur.shape[0] != cms_cur.shape[0]:
         raise ValueError("fused_update: HLL and CMS window counts differ")
-    if cms_cur.shape[1] * cms_cur.shape[2] * 4 > 232448:
-        raise ValueError(
-            "fused_update keeps the D x Wc CMS counters in shared memory; "
-            "an H100 block has at most 232448 B"
-        )
     for h in heads or ():
         if h.dtype != torch.float32 or not h.is_contiguous():
             raise ValueError("fused_update: head arrays must be contiguous float32")
@@ -349,8 +395,7 @@ def fused_update(
     batch = (svc, log_lat, is_error, trace_hi, trace_lo, valid)
     _check_kernel_args(hll_cur, cms_cur, batch, cidx, heads, hll_p)
     s = num_services
-    b = svc.shape[0]
-    n_blocks = max(1, min(132, -(-b // 512)))
+    n_blocks = _n_blocks(svc.shape[0])
     partials = torch.empty((n_blocks, 4, s), dtype=torch.float32, device=dev)
     stats = torch.empty((4, s), dtype=torch.float32, device=dev)
     zs = None
@@ -368,6 +413,51 @@ def fused_update(
         dt=dt, step_idx=step_idx, zs=zs, statics=statics,
     )
     return stats if heads is None else (stats, zs)
+
+
+def sketch_delta(
+    svc: torch.Tensor,
+    log_lat: torch.Tensor,
+    is_error: torch.Tensor,
+    trace_hi: torch.Tensor,
+    trace_lo: torch.Tensor,
+    cidx: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    num_services: int,
+    hll_p: int,
+    cms_width: int,
+) -> SketchDelta:
+    """The ``sketch_delta`` kernel's wrapper. CPU tensors run
+    :func:`sketch_delta_plain`; CUDA tensors launch the kernel (or
+    raise); other devices raise."""
+    dev = svc.device
+    kw = dict(num_services=num_services, hll_p=hll_p, cms_width=cms_width)
+    if dev.type == "cpu":
+        return sketch_delta_plain(
+            svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid, **kw
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"sketch_delta has no kernel for device {dev}")
+    _check_lanes(
+        "sketch_delta", (svc, log_lat, is_error, trace_hi, trace_lo, valid),
+        cidx, hll_p, cms_width,
+    )
+    s, d = num_services, cidx.shape[0]
+    delta = SketchDelta(
+        hll=torch.empty((s, 1 << hll_p), dtype=torch.int32, device=dev),
+        cms=torch.empty((d, cms_width), dtype=torch.int32, device=dev),
+        stats=torch.empty((4, s), dtype=torch.float32, device=dev),
+    )
+    partials = torch.empty(
+        (_n_blocks(svc.shape[0]), 4, s), dtype=torch.float32, device=dev
+    )
+    _kernels.launch_sketch_delta(
+        svc=svc, log_lat=log_lat, is_error=is_error, trace_hi=trace_hi,
+        trace_lo=trace_lo, cidx=cidx, valid=valid, **kw, hll=delta.hll,
+        cms=delta.cms, partials=partials, stats=delta.stats,
+    )
+    return delta
 
 
 def sketch_batch_update(

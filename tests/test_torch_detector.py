@@ -258,13 +258,31 @@ def test_entry_point_defaults_to_the_card():
 
 
 def test_unported_mesh_step_raises(rng):
-    cfg = tdet.DetectorConfig(**SMALL)
-    from opentelemetry_demo_tpu_torch.ops.collectives import Comm
+    """Any comm but NO_COMM takes the mesh (delta) path: an unknown merge
+    raises before any reduction, and a comm with no groups — every
+    reduction the identity — equals the single-device step over chained
+    steps (integer state bit-exact), for every sketch impl."""
+    from opentelemetry_demo_tpu_torch.ops.collectives import NO_COMM, Comm
 
+    cfg = tdet.DetectorConfig(**SMALL)
     det = tdet.AnomalyDetector(cfg, device="cpu")
     args = det._args(_stream(rng, 1)[0], 0.0)
-    with pytest.raises(NotImplementedError):
-        tdet.detector_step(cfg, det.state, *args, comm=Comm("batch", None))
+    with pytest.raises(ValueError, match="merge_impl"):
+        tdet.detector_step(cfg, det.state, *args, comm=Comm(merge_impl="rign"))
+
+    unsharded = Comm()
+    assert unsharded == NO_COMM and unsharded is not NO_COMM
+    batches = _stream(rng, 8)
+    for impl in ("xla", "interpret", "pallas"):
+        cfg = tdet.DetectorConfig(**SMALL, sketch_impl=impl)
+        one, delta = (tdet.AnomalyDetector(cfg, device="cpu") for _ in range(2))
+        for step, batch in enumerate(batches):
+            t = 10.0 + step * DT
+            args = one._args(batch, t)
+            _, rep_one = tdet.detector_step(cfg, one.state, *args)
+            _, rep_delta = tdet.detector_step(cfg, delta.state, *args, comm=unsharded)
+            _assert_report(rep_one, rep_delta, step)
+            _assert_state(tdet.state_to_numpy(one.state), tdet.state_to_numpy(delta.state), step)
 
 
 # -- on the card ------------------------------------------------------------

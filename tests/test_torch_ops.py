@@ -232,6 +232,8 @@ def test_kernel_wrappers_refuse_devices_without_a_kernel():
     banks = torch.zeros((3, 8, 256), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused.fused_update(banks, banks, *([keys] * 7), num_services=8, hll_p=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused.sketch_delta(*([keys] * 7), num_services=8, hll_p=8, cms_width=512)
 
 
 # -- EWMA ---------------------------------------------------------------
@@ -301,10 +303,30 @@ def test_sketch_batch_delta_equal_reference(rng, b, s, p, d, w):
     _assert_close(ref.stats, got.stats)
 
 
-def test_sketch_batch_delta_kernel_branch_names_k3(rng):
+@pytest.mark.parametrize("impl", ["pallas", "interpret"])
+@pytest.mark.parametrize("b", [512, 4096, 12288])
+def test_sketch_batch_delta_kernel_branch_equal_reference(rng, impl, b):
+    """The delta kernel's branch against the reference's ``_delta_kernel``
+    in interpret mode (one batch tile up to 4096 lanes, a three-tile grid
+    at 12288). The port's ``"pallas"`` on a CPU tensor is the
+    ``sketch_delta`` wrapper's plain version; ``"interpret"`` is that
+    plain version on any device."""
+    s, p, d, w = 8, 8, 4, 1024
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    # Out-of-slice and negative ids, as a sketch-sharded shard sees them.
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    ref = jfused.sketch_batch_delta(*_jax_args(batch), impl="interpret", **kw)
+    got = fused.sketch_batch_delta(*_torch_args(batch), impl=impl, **kw)
+    np.testing.assert_array_equal(np.asarray(ref.hll), got.hll.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.cms), got.cms.numpy())
+    _assert_close(ref.stats, got.stats)
+    assert int(got.stats[0].sum()) == int((batch["valid"] & (batch["svc"] >= 0) & (batch["svc"] < s)).sum())
+
+
+def test_sketch_batch_delta_refuses_unknown_impl(rng):
     batch = _batch(rng, 64, 8, 4, 512)
-    with pytest.raises(NotImplementedError, match="_delta_kernel"):
-        fused.sketch_batch_delta(*_torch_args(batch), num_services=8, hll_p=8, cms_width=512, impl="pallas")
+    with pytest.raises(ValueError, match="unknown sketch impl"):
+        fused.sketch_batch_delta(*_torch_args(batch), num_services=8, hll_p=8, cms_width=512, impl="cuda")
 
 
 @pytest.mark.parametrize("ref_impl", ["xla", "interpret"])
@@ -394,6 +416,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((root / "opentelemetry_demo_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 10
+    parallel = {p.name for p in files if p.parent.name == "parallel"}
+    assert {"__init__.py", "mesh.py", "ring.py", "spmd.py", "launch.py"} <= parallel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -437,6 +461,26 @@ def test_fused_update_kernel_matches_plain(rng, cuda_device, b):
     _assert_close(s2, s1)
     for a, b_ in zip(hd2 + z2, hd1 + z1):
         _assert_close(a, b_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", [(2048, 32, 4), (65536, 32, 4), (32768, 16, 2)])
+def test_sketch_delta_kernel_matches_plain(rng, cuda_device, b, s, d):
+    """K3 at the mesh path's shapes: one rank at full width (S=32, D=4)
+    and a (2 batch x 2 sketch) rank's slice (S=16, D=2)."""
+    p, w = 12, 8192
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    args = [t.to(cuda_device) for t in _torch_args(batch)]
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    before = _kernels.LAUNCHES["sketch_delta"]
+    got = fused.sketch_delta(*args, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["sketch_delta"] == before + 1
+    want = fused.sketch_delta_plain(*args, **kw)
+    assert torch.equal(got.hll, want.hll) and torch.equal(got.cms, want.cms)
+    _assert_close(want.stats.cpu(), got.stats.cpu())
+    again = fused.sketch_delta(*args, **kw)  # outputs cleared by the kernel
+    assert torch.equal(again.stats, got.stats) and torch.equal(again.cms, got.cms)
 
 
 @pytest.mark.gpu
