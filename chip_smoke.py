@@ -127,14 +127,15 @@ def close(a: torch.Tensor, b: torch.Tensor) -> bool:
 # -- inputs at the main path's shapes -----------------------------------------
 
 
-def batch_lanes(rng, cfg, b: int, device):
-    """One packed batch as the detector step hands it to the sketch update:
-    a few lanes are padding, a few carry service ids ≥ S."""
+def batch_lanes(rng, cfg, b: int, device, n_active: int = N_SERVICES):
+    """One packed batch as the detector step hands it to the sketch update,
+    over ``n_active`` services: a few lanes are padding, a few carry
+    service ids ≥ S."""
     from opentelemetry_demo_tpu_torch.ops import cms
     from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
 
     n = b - b // 32
-    svc = rng.integers(0, N_SERVICES, n).astype(np.int32)
+    svc = rng.integers(0, n_active, n).astype(np.int32)
     svc[: n // 64] = rng.integers(cfg.num_services, cfg.num_services + 8, n // 64)
     batch = SpanTensorizer(cfg.num_services, b).pack_arrays(
         svc,
@@ -233,43 +234,108 @@ def phase_build():
     paths = _kernels.build_all()
     build_s = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke_build.log").write_text(
-        "\n".join(f"== {k}\n{v}" for k, v in _kernels.BUILD_LOG.items())
-    )
+    if _kernels.BUILD_LOG:
+        (OUT_DIR / "chip_smoke_build.log").write_text(
+            "\n".join(f"== {k}\n{v}" for k, v in _kernels.BUILD_LOG.items())
+        )
     print(f"build: {sorted(paths)} in {build_s:.2f} s")
 
 
-def phase_fused_update(cfg, device, results):
-    """K1 against its plain version at B = 2048 and 8192."""
+def hot_keys(lanes, cfg):
+    """The same lanes with every one on service 3, one CMS counter per
+    row and one HLL bucket (ranks still differ): the warp-merge case."""
+    out = dict(lanes)
+    b = lanes["svc"].shape[0]
+    d = lanes["cidx"].shape[0]
+    out["svc"] = torch.full_like(lanes["svc"], 3)
+    rows = torch.arange(d, dtype=torch.int32, device=lanes["cidx"].device)[:, None] * 101 + 7
+    out["cidx"] = rows.expand(d, b).contiguous()
+    out["trace_lo"] = (lanes["trace_lo"] & ~((1 << cfg.hll_p) - 1)) | 5
+    return out
+
+
+def all_invalid(lanes, cfg):
+    return dict(lanes, valid=torch.zeros_like(lanes["valid"]))
+
+
+def special_cases(rng, cfg, device):
+    """``(name, lanes)`` for the edge cases both sketch kernels must hold:
+    hot keys, no valid lane, one lane, and a width that is no multiple of
+    a block's lanes."""
+    base = batch_lanes(rng, cfg, 2048, device)
+    return [
+        ("hot keys B=2048", hot_keys(base, cfg)),
+        ("hot keys B=65536", hot_keys(batch_lanes(rng, cfg, 65536, device), cfg)),
+        ("all invalid B=2048", all_invalid(base, cfg)),
+        ("B=1", batch_lanes(rng, cfg, 1, device)),
+        ("ragged B=3001", batch_lanes(rng, cfg, 3001, device)),
+        # More lanes than 512 threads on each SM take in one pass.
+        ("ragged B=140001", batch_lanes(rng, cfg, 140001, device)),
+    ]
+
+
+# (B, S) with more head cells than block 0 has threads (128 at B = 2048),
+# so the head epilogue takes several passes, and with stats for so many
+# services that a block has room for two warps.
+MANY_SERVICES = ((2048, 64), (2048, 192), (8192, 1000))
+
+
+def k1_args(lanes):
+    return tuple(lanes[k] for k in ("svc", "log_lat", "is_error", "trace_hi", "trace_lo", "cidx", "valid"))
+
+
+def run_k1(update, cfg, device, lanes, state):
+    """One fused update from a copy of ``state``: ``(hll, cms, floats)``."""
     from opentelemetry_demo_tpu_torch.ops import fused
 
+    hll_bank, cms_bank, heads = state
+    hb, cb = hll_bank.clone(), cms_bank.clone()
+    hs = fused.HeadState(**{k: v.clone() for k, v in heads.items()})
+    stats, zs = update(
+        hb[:, 0], cb[:, 0], *k1_args(lanes), num_services=cfg.num_services, hll_p=cfg.hll_p,
+        heads=hs, dt=torch.tensor(DT_S, device=device),
+        step_pos=torch.tensor(7, dtype=torch.int32, device=device), statics=head_kw(cfg),
+    )
+    torch.cuda.synchronize()
+    return hb, cb, [stats, *hs, *zs]
+
+
+def check_k1(cfg, device, lanes, state, what, moved=True) -> float:
+    """K1 twice and its plain version once on the same inputs: banks
+    exact, floats within RTOL/ATOL, the two launches bit-identical."""
+    from opentelemetry_demo_tpu_torch.ops import fused
+
+    hk, ck, fk = run_k1(fused.fused_update, cfg, device, lanes, state)
+    hk2, ck2, fk2 = run_k1(fused.fused_update, cfg, device, lanes, state)
+    hp, cp, fp = run_k1(fused.fused_update_plain, cfg, device, lanes, state)
+    check(torch.equal(hk, hp), f"fused_update HLL banks differ ({what})")
+    check(torch.equal(ck, cp), f"fused_update CMS banks differ ({what})")
+    if moved:
+        check(not torch.equal(hk, state[0]) and not torch.equal(ck, state[1]), f"banks unchanged ({what})")
+    check(torch.equal(hk, hk2) and torch.equal(ck, ck2), f"fused_update repeat banks differ ({what})")
+    worst = 0.0
+    for i, (a, a2, p) in enumerate(zip(fk, fk2, fp)):
+        check(close(a, p), f"fused_update float output {i} differs ({what}): {max_err(a, p)}")
+        check(torch.equal(a, a2), f"fused_update float output {i} differs between two launches ({what})")
+        worst = max(worst, max_err(a, p))
+    print(f"fused_update {what}: banks bit-exact, floats max abs err {worst:.3g}, repeat bit-identical")
+    return worst
+
+
+def phase_fused_update(cfg, device, results):
+    """K1 against its plain version at B = 2048, 8192 and 65536 (the
+    widths it is timed at), on the edge cases and at many services."""
     rng = np.random.default_rng(1)
     worst = 0.0
-    for b in (2048, 8192):
+    for b in (2048, 8192, 65536):
         lanes = batch_lanes(rng, cfg, b, device)
-        hll_bank, cms_bank, heads = random_state(rng, cfg, device)
-        outs = []
-        for update in (fused.fused_update, fused.fused_update_plain):
-            hb, cb = hll_bank.clone(), cms_bank.clone()
-            hs = fused.HeadState(**{k: v.clone() for k, v in heads.items()})
-            stats, zs = update(
-                hb[:, 0], cb[:, 0], lanes["svc"], lanes["log_lat"], lanes["is_error"],
-                lanes["trace_hi"], lanes["trace_lo"], lanes["cidx"], lanes["valid"],
-                num_services=cfg.num_services, hll_p=cfg.hll_p, heads=hs,
-                dt=torch.tensor(DT_S, device=device),
-                step_pos=torch.tensor(7, dtype=torch.int32, device=device),
-                statics=head_kw(cfg),
-            )
-            torch.cuda.synchronize()
-            outs.append((hb, cb, [stats, *hs, *zs]))
-        (hk, ck, fk), (hp, cp, fp) = outs
-        check(torch.equal(hk, hp), f"fused_update HLL banks differ at B={b}")
-        check(torch.equal(ck, cp), f"fused_update CMS banks differ at B={b}")
-        check(not torch.equal(hk, hll_bank) and not torch.equal(ck, cms_bank), "banks unchanged")
-        for i, (a, p) in enumerate(zip(fk, fp)):
-            check(close(a, p), f"fused_update float output {i} differs at B={b}: {max_err(a, p)}")
-            worst = max(worst, max_err(a, p))
-        print(f"fused_update B={b}: banks bit-exact, floats max abs err {worst:.3g}")
+        worst = max(worst, check_k1(cfg, device, lanes, random_state(rng, cfg, device), f"B={b}"))
+    for what, lanes in special_cases(rng, cfg, device):
+        worst = max(worst, check_k1(cfg, device, lanes, random_state(rng, cfg, device), what, moved=False))
+    for b, s in MANY_SERVICES:
+        c = cfg._replace(num_services=s)
+        lanes = batch_lanes(rng, c, b, device, n_active=s)
+        worst = max(worst, check_k1(c, device, lanes, random_state(rng, c, device), f"B={b} S={s}"))
     results["fused_update"] = {"max_abs_err": worst}
 
 
@@ -292,28 +358,46 @@ def phase_cms_hist(cfg, device, results):
     results["cms_hist"] = {"max_abs_err": 0.0}
 
 
-def phase_sketch_delta(cfg, device, results):
-    """K3 against its plain version at B = 2048 and 65536, on one rank's
-    full width (S=32, D=4) and a (2 × 2) mesh rank's slice (S=16, D=2)."""
+def check_k3(args, kw, what, nonempty=True) -> float:
+    """K3 twice and its plain version once: integers exact, stats within
+    RTOL/ATOL, the two launches bit-identical."""
     from opentelemetry_demo_tpu_torch.ops import fused
 
+    got = fused.sketch_delta(*args, **kw)
+    again = fused.sketch_delta(*args, **kw)
+    want = fused.sketch_delta_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got.hll, want.hll), f"sketch_delta HLL differs ({what})")
+    check(torch.equal(got.cms, want.cms), f"sketch_delta CMS differs ({what})")
+    if nonempty:
+        check(int(got.hll.count_nonzero()) > 0, f"sketch_delta HLL empty ({what})")
+    err = max_err(got.stats, want.stats)
+    check(close(got.stats, want.stats), f"sketch_delta stats differ ({what}): {err}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"sketch_delta repeat differs ({what})")
+    print(f"sketch_delta {what}: integers exact, stats max abs err {err:.3g}, repeat bit-identical")
+    return err
+
+
+def phase_sketch_delta(cfg, device, results):
+    """K3 against its plain version at B = 2048, 32768 and 65536, on one
+    rank's full width (S=32, D=4) and a (2 × 2) mesh rank's slice (S=16,
+    D=2), on the edge cases and at many services."""
     rng = np.random.default_rng(7)
     worst = 0.0
-    for b in (2048, 65536):
-        for s, d in ((32, 4), (16, 2)):
-            c = cfg._replace(num_services=s, cms_depth=d)
+    for s, d in ((32, 4), (16, 2)):
+        c = cfg._replace(num_services=s, cms_depth=d)
+        kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
+        for b in (2048, 32768, 65536):
             args = delta_args(batch_lanes(rng, c, b, device))
-            kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
-            got = fused.sketch_delta(*args, **kw)
-            want = fused.sketch_delta_plain(*args, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(got.hll, want.hll), f"sketch_delta HLL differs at B={b} S={s} D={d}")
-            check(torch.equal(got.cms, want.cms), f"sketch_delta CMS differs at B={b} S={s} D={d}")
-            check(int(got.hll.count_nonzero()) > 0, "sketch_delta HLL empty")
-            check(close(got.stats, want.stats), f"sketch_delta stats differ at B={b}: {max_err(got.stats, want.stats)}")
-            worst = max(worst, max_err(got.stats, want.stats))
-            print(f"sketch_delta B={b} S={s} D={d}: integers exact, stats max abs err "
-                  f"{max_err(got.stats, want.stats):.3g}")
+            worst = max(worst, check_k3(args, kw, f"B={b} S={s} D={d}"))
+        for what, lanes in special_cases(rng, c, device):
+            nonempty = "invalid" not in what and what != "B=1"
+            worst = max(worst, check_k3(delta_args(lanes), kw, f"{what} S={s} D={d}", nonempty))
+    for b, s in MANY_SERVICES:
+        c = cfg._replace(num_services=s)
+        kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
+        args = delta_args(batch_lanes(rng, c, b, device, n_active=s))
+        worst = max(worst, check_k3(args, kw, f"B={b} S={s} D={c.cms_depth}"))
     results["sketch_delta"] = {"max_abs_err": worst}
 
 
@@ -607,74 +691,139 @@ def phase_step_time(device, impl, width):
     return time_ms(step, 5)
 
 
+def profile_ops(fn, iters: int = 50) -> dict:
+    """Device time per call of each device operation that ``fn`` runs,
+    from a ``torch.profiler`` window (CUPTI) over ``iters`` calls:
+    ``{operation: {"ms": device ms per call, "per_call": operations per
+    call}}``. Empty when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, dict] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.key.replace("(anonymous namespace)::", "").split("(")[0]
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        row = out.setdefault(name.removeprefix("void ").strip(), {"ms": 0.0, "per_call": 0.0})
+        row["ms"] += us / 1e3 / iters
+        row["per_call"] += evt.count / iters
+    return out
+
+
+def time_kernel(plain_fn, kernel_fn, plain_iters: int, kernel_iters: int = 200) -> dict:
+    """A kernel and its plain version on the same inputs in turns (plain,
+    kernel, kernel, plain), and the kernel's device operations from the
+    profiler."""
+    turns = [time_ms(f, n) for f, n in (
+        (plain_fn, plain_iters), (kernel_fn, kernel_iters), (kernel_fn, kernel_iters), (plain_fn, plain_iters),
+    )]
+    check(all(t[0] is not None for t in turns), "a device time could not be taken")
+    return dict(turns=turns, ms=turns[1][0], plain_ms=turns[0][0], breakdown=profile_ops(kernel_fn))
+
+
+def show_breakdown(ops: dict) -> str:
+    if not ops:
+        return "profiler saw no device activity"
+    return "; ".join(f"{k}: {v['ms']:.5f} ms x{v['per_call']:g}" for k, v in ops.items())
+
+
 def phase_times(cfg, device, results):
     """Each kernel, its plain version and the library call on the same
-    inputs, in turns (plain, kernel, kernel, plain)."""
+    inputs, in turns (plain, kernel, kernel, plain), at the shapes of its
+    paths; and each kernel's device time split by device operation. K1 is
+    timed at B = 2048 (the main path), 8192 and 65536; K3 at a (2 × 2)
+    mesh rank's shape and at one rank's full width, B = 2048 and 65536
+    (the one-rank mesh leg's widths). Both also at B = 1, and K1 at 2048
+    without its head epilogue, to show the launch's fixed cost."""
     from opentelemetry_demo_tpu_torch.ops import cms, fused
 
     rng = np.random.default_rng(6)
-    lanes = batch_lanes(rng, cfg, 2048, device)
-    hll_bank, cms_bank, heads = random_state(rng, cfg, device)
-    hs = fused.HeadState(**heads)
-    kw = dict(num_services=cfg.num_services, hll_p=cfg.hll_p, heads=hs,
-              dt=torch.tensor(DT_S, device=device),
-              step_pos=torch.tensor(7, dtype=torch.int32, device=device), statics=head_kw(cfg))
-    args = (hll_bank[:, 0], cms_bank[:, 0], lanes["svc"], lanes["log_lat"], lanes["is_error"],
-            lanes["trace_hi"], lanes["trace_lo"], lanes["cidx"], lanes["valid"])
-    plain = (lambda: fused.fused_update_plain(*args, **kw), 10)
-    kernel = (lambda: fused.fused_update(*args, **kw), 200)
     k1 = results["fused_update"]
-    k1["turns"] = [time_ms(*f) for f in (plain, kernel, kernel, plain)]
-    k1["bound_ms"] = fused_bound_bytes(lanes, cfg) / HBM_BYTES_PER_S * 1e3
-    k1["library"] = (None, None)
+    k1["shapes"] = {}
+    for b in (2048, 8192, 65536):
+        lanes = batch_lanes(rng, cfg, b, device)
+        hll_bank, cms_bank, heads = random_state(rng, cfg, device)
+        kw = dict(num_services=cfg.num_services, hll_p=cfg.hll_p, heads=fused.HeadState(**heads),
+                  dt=torch.tensor(DT_S, device=device),
+                  step_pos=torch.tensor(7, dtype=torch.int32, device=device), statics=head_kw(cfg))
+        args = (hll_bank[:, 0], cms_bank[:, 0], *k1_args(lanes))
+        k1["shapes"][f"B={b}"] = dict(
+            time_kernel(lambda: fused.fused_update_plain(*args, **kw), lambda: fused.fused_update(*args, **kw),
+                        10 if b < 65536 else 4),
+            bound_ms=fused_bound_bytes(lanes, cfg) / HBM_BYTES_PER_S * 1e3,
+        )
+        if b == 2048:
+            # Without the head epilogue, and with one lane: what the heads
+            # and the lanes add to the launch's fixed cost.
+            kw_nh = dict(num_services=cfg.num_services, hll_p=cfg.hll_p)
+            k1["shapes"]["B=2048 no heads"] = dict(
+                time_kernel(lambda: fused.fused_update_plain(*args, **kw_nh),
+                            lambda: fused.fused_update(*args, **kw_nh), 10),
+                bound_ms=fused_bound_bytes(lanes, cfg) / HBM_BYTES_PER_S * 1e3,
+            )
+            one = {k: v[..., :1].contiguous() for k, v in lanes.items()}
+            args1 = (hll_bank[:, 0], cms_bank[:, 0], *k1_args(one))
+            k1["shapes"]["B=1"] = dict(
+                time_kernel(lambda: fused.fused_update_plain(*args1, **kw),
+                            lambda: fused.fused_update(*args1, **kw), 10),
+                bound_ms=fused_bound_bytes(one, cfg) / HBM_BYTES_PER_S * 1e3,
+            )
+    k1.update(k1["shapes"]["B=2048"], library_ms=None)
 
     lanes = batch_lanes(rng, cfg, 65536, device)
     n_bins = cfg.cms_depth * cfg.cms_width
     rows = torch.arange(cfg.cms_depth, dtype=torch.int32, device=device)[:, None] * cfg.cms_width
     keys = torch.where(lanes["valid"][None, :], lanes["cidx"] + rows, n_bins).reshape(-1).contiguous()
-    plain = (lambda: cms.cms_hist_plain(keys, n_bins), 20)
-    kernel = (lambda: cms.cms_hist(keys, n_bins), 200)
     k2 = results["cms_hist"]
-    k2["turns"] = [time_ms(*f) for f in (plain, kernel, kernel, plain)]
-    # The yardstick: one PyTorch call computing the same histogram.
-    k2["library"] = time_ms(lambda: torch.bincount(keys, minlength=n_bins + 1)[:n_bins], 50)
-    k2["bound_ms"] = (keys.numel() * 4 + n_bins * 4) / HBM_BYTES_PER_S * 1e3
+    k2["shapes"] = {f"{keys.numel()} keys": dict(
+        time_kernel(lambda: cms.cms_hist_plain(keys, n_bins), lambda: cms.cms_hist(keys, n_bins), 20),
+        bound_ms=(keys.numel() * 4 + n_bins * 4) / HBM_BYTES_PER_S * 1e3,
+    )}
+    k2.update(next(iter(k2["shapes"].values())))
+    # The yardstick: one PyTorch call computing the same histogram. Its
+    # wall time includes a host read (bincount sizes its output from the
+    # keys' maximum); its device time is the sum over the CUDA kernels the
+    # profiler sees in the call (its memsets and its copy of the maximum
+    # to the host are listed beside it).
+    library = lambda: torch.bincount(keys, minlength=n_bins + 1)[:n_bins]  # noqa: E731
+    k2["library_wall_ms"] = time_ms(library, 50)[1]
+    k2["library_breakdown"] = profile_ops(library)
+    k2["library_ms"] = sum(
+        v["ms"] for k, v in k2["library_breakdown"].items() if not k.startswith(("Memcpy", "Memset"))
+    ) or None
 
-    # K3 at a (2 × 2) mesh rank's shape: 32768 lanes, S=16, D=2.
-    c = cfg._replace(num_services=16, cms_depth=2)
-    lanes = batch_lanes(rng, c, 32768, device)
-    args = delta_args(lanes)
-    kw = dict(num_services=16, hll_p=c.hll_p, cms_width=c.cms_width)
-    plain = (lambda: fused.sketch_delta_plain(*args, **kw), 20)
-    kernel = (lambda: fused.sketch_delta(*args, **kw), 200)
     k3 = results["sketch_delta"]
-    k3["turns"] = [time_ms(*f) for f in (plain, kernel, kernel, plain)]
-    k3["library"] = (None, None)
-    k3["bound_ms"] = delta_bound_bytes(lanes, 16, c) / HBM_BYTES_PER_S * 1e3
-    # And at one rank's full width, for the record.
-    lanes = batch_lanes(rng, cfg, 65536, device)
-    args_full = delta_args(lanes)
-    kw_full = dict(num_services=cfg.num_services, hll_p=cfg.hll_p, cms_width=cfg.cms_width)
-    k3["full_width"] = dict(
-        turns=[time_ms(*f) for f in (
-            (lambda: fused.sketch_delta_plain(*args_full, **kw_full), 20),
-            (lambda: fused.sketch_delta(*args_full, **kw_full), 200),
-        )],
-        bound_ms=delta_bound_bytes(lanes, cfg.num_services, cfg) / HBM_BYTES_PER_S * 1e3,
-    )
-    print(f"time sketch_delta B=65536 S=32 D=4: (device, wall) plain {k3['full_width']['turns'][0]}, "
-          f"kernel {k3['full_width']['turns'][1]}; bound {k3['full_width']['bound_ms']:.6f} ms")
+    k3["shapes"] = {}
+    for b, s, d in ((32768, 16, 2), (2048, cfg.num_services, cfg.cms_depth),
+                    (65536, cfg.num_services, cfg.cms_depth), (1, cfg.num_services, cfg.cms_depth)):
+        c = cfg._replace(num_services=s, cms_depth=d)
+        lanes = batch_lanes(rng, c, b, device)
+        args = delta_args(lanes)
+        kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
+        k3["shapes"][f"B={b} S={s} D={d}"] = dict(
+            time_kernel(lambda: fused.sketch_delta_plain(*args, **kw), lambda: fused.sketch_delta(*args, **kw), 20),
+            bound_ms=delta_bound_bytes(lanes, s, c) / HBM_BYTES_PER_S * 1e3,
+        )
+    k3.update(k3["shapes"]["B=32768 S=16 D=2"], library_ms=None)
+
     for name, r in results.items():
-        (p1, _), (k1_, _), (k2_, _), (p2, _) = r["turns"]
-        check(None not in (p1, k1_, k2_, p2), f"{name}: a device time could not be taken")
-        r["ms"], r["plain_ms"] = k1_, p1
-        lib_dev, lib_wall = r["library"]
-        # bincount sizes its output from the keys' maximum, a host read,
-        # so its device time may not be separable: then its wall time.
-        r["library_ms"] = lib_dev if lib_dev is not None else lib_wall
-        print(f"time {name}: device kernel {k1_:.5f} / {k2_:.5f} ms, plain {p1:.5f} / {p2:.5f} ms; "
-              f"wall kernel {r['turns'][1][1]:.5f} ms, plain {r['turns'][0][1]:.5f} ms; "
-              f"library (device, wall) {r['library']}; bound {r['bound_ms']:.6f} ms")
+        for label, t in r["shapes"].items():
+            (p1, pw), (k1_, kw_), (k2_, _), (p2, _) = t["turns"]
+            print(f"time {name} {label}: device kernel {k1_:.5f} / {k2_:.5f} ms, plain {p1:.5f} / "
+                  f"{p2:.5f} ms; wall kernel {kw_:.5f} ms, plain {pw:.5f} ms; bound {t['bound_ms']:.6f} ms")
+            print(f"  device operations per call ({name} {label}): {show_breakdown(t['breakdown'])}")
+    print(f"time torch.bincount (yardstick of cms_hist): device {k2['library_ms']} ms "
+          f"({show_breakdown(k2['library_breakdown'])}), wall {k2['library_wall_ms']:.5f} ms")
 
 
 def mesh_on_cards(n_cards: int) -> int:
@@ -707,6 +856,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the card.")
     ap.add_argument("--nccl-cards", type=int, default=0,
                     help="run only the four-rank mesh leg over NCCL, one card per rank")
+    ap.add_argument("--times-only", metavar="JSON",
+                    help="build the kernels and run only the timing phase, writing its record "
+                         "to JSON (to compare two trees on one card in one call)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -725,6 +877,14 @@ def main() -> int:
     from opentelemetry_demo_tpu_torch.models import DetectorConfig
 
     cfg = DetectorConfig()
+    if args.times_only:
+        phase_build()
+        results = {name: {} for name in ("fused_update", "cms_hist", "sketch_delta")}
+        phase_times(cfg, device, results)
+        Path(args.times_only).write_text(json.dumps({"card": card, "root": str(ROOT), "times": results},
+                                                    indent=1, default=str))
+        print(card)
+        return 0
     results: dict[str, dict] = {}
     phase_build()
     phase_fused_update(cfg, device, results)

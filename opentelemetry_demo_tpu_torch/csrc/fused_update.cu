@@ -22,12 +22,14 @@
 // (4 B each), valid (1 B) and D row indices (4 B each): 37 B at D = 4.
 // Each touched bank cell is read and written once per window. At
 // B = 2048 that is well under 1 MB, a fraction of a microsecond at
-// 3.35 TB/s, so two launches of a few microseconds each set the time.
+// 3.35 TB/s, so the launch and a few dependent memory round trips set
+// the time.
 //
-// Design: HLL atomicMax straight into each of the W banks; CMS counts
-// privatised in shared memory and atomicAdded into the W banks; stats as
-// fixed-order per-block partials, reduced in block order by a second
-// launch (heads_kernel) that also runs head_update.
+// Design (sketch_kernels.cuh): one cooperative launch per call.
+// Fixed-order per-block stats partials, a grid barrier, then warp-merged
+// atomics straight into each of the W banks (atomicMax for HLL, atomicAdd
+// for CMS) while block 0 sums the partials in block order and runs
+// head_update.
 
 #include "sketch_kernels.cuh"
 
@@ -36,34 +38,45 @@ extern "C" int fused_update_launch(
     const void* trace_hi, const void* trace_lo, const void* cidx,
     const void* valid, int B, int S, int p, int D, int Wc, void* hll,
     long long hll_ws, void* cms, long long cms_ws, int n_windows,
-    void* partials, int n_blocks, void* stats, int fold, void* lat_mean,
-    void* lat_var, void* err_mean, void* rate_mean, void* rate_var,
-    void* cusum, void* obs_batches, const void* dt, const void* step_idx,
-    void* lat_z, void* err_z, void* rate_z, const float* taus, int n_taus,
-    float warmup, float z_warmup, float cusum_k, float cusum_cap,
-    float err_slack, void* stream) {
+    void* partials, void* stats, int grid, int threads,
+    int lanes_per_block, int smem, int fold, void* lat_mean, void* lat_var,
+    void* err_mean, void* rate_mean, void* rate_var, void* cusum,
+    void* obs_batches, const void* dt, const void* step_idx, void* lat_z,
+    void* err_z, void* rate_z, const float* taus, int n_taus, float warmup,
+    float z_warmup, float cusum_k, float cusum_cap, float err_slack,
+    void* stream) {
   if (n_taus > kMaxTaus) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_sketch(
-      svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid, B, S, p, D,
-      Wc, hll, hll_ws, cms, cms_ws, n_windows, partials, n_blocks, st);
-  if (err != cudaSuccess) return (int)err;
-
-  HeadParams hp = {};
-  hp.n_taus = n_taus;
-  for (int t = 0; t < n_taus; ++t) {
-    hp.taus[t] = taus[t];
-    if (t == 0 || taus[t] > hp.tau_max) hp.tau_max = taus[t];
+  SketchArgs a = {
+      (const int*)svc, (const float*)log_lat, (const float*)is_error,
+      (const int*)trace_hi, (const int*)trace_lo, (const int*)cidx,
+      (const unsigned char*)valid, B, S, p, D, Wc, (int*)hll, hll_ws,
+      (int*)cms, cms_ws, n_windows, lanes_per_block, grid, (float*)partials,
+      (float*)stats, nullptr, 0};
+  HeadArgs h = {};
+  h.fold = fold;
+  if (fold) {
+    h.lat_mean = (float*)lat_mean;
+    h.lat_var = (float*)lat_var;
+    h.err_mean = (float*)err_mean;
+    h.rate_mean = (float*)rate_mean;
+    h.rate_var = (float*)rate_var;
+    h.cusum = (float*)cusum;
+    h.obs_batches = (float*)obs_batches;
+    h.dt = (const float*)dt;
+    h.step_idx = (const int*)step_idx;
+    h.lat_z = (float*)lat_z;
+    h.err_z = (float*)err_z;
+    h.rate_z = (float*)rate_z;
+    h.hp.n_taus = n_taus;
+    for (int t = 0; t < n_taus; ++t) {
+      h.hp.taus[t] = taus[t];
+      if (t == 0 || taus[t] > h.hp.tau_max) h.hp.tau_max = taus[t];
+    }
+    h.hp.warmup = warmup;
+    h.hp.z_warmup = z_warmup;
+    h.hp.cusum_k = cusum_k;
+    h.hp.cusum_cap = cusum_cap;
+    h.hp.err_slack = err_slack;
   }
-  hp.warmup = warmup;
-  hp.z_warmup = z_warmup;
-  hp.cusum_k = cusum_k;
-  hp.cusum_cap = cusum_cap;
-  hp.err_slack = err_slack;
-  heads_kernel<<<(S + 127) / 128, 128, 0, st>>>(
-      (const float*)partials, n_blocks, S, (float*)stats, fold,
-      (float*)lat_mean, (float*)lat_var, (float*)err_mean, (float*)rate_mean,
-      (float*)rate_var, (float*)cusum, (float*)obs_batches, (const float*)dt,
-      (const int*)step_idx, (float*)lat_z, (float*)err_z, (float*)rate_z, hp);
-  return (int)cudaGetLastError();
+  return (int)launch_sketch(a, h, grid, threads, smem, (cudaStream_t)stream);
 }

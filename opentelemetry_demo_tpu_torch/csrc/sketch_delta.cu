@@ -19,39 +19,35 @@
 // trace hi/lo (4 B each), valid (1 B) and D row indices (4 B each): 29 B
 // at D = 2, 37 B at D = 4; the outputs are written whole, (S*R + D*Wc +
 // 4*S) * 4 B. At B = 32768, S = 16, D = 2 that is about 1.3 MB, 0.4 us
-// at 3.35 TB/s: launches and the per-block shared-memory clear and flush
-// set the time.
+// at 3.35 TB/s: the launch and a few dependent memory round trips set the
+// time.
 //
 // Design: a delta into one bank is the fused update's sketch launch over
-// a single zeroed bank (sketch_kernels.cuh), so both kernels share their
-// device code. The outputs are cleared with cudaMemsetAsync on the
-// caller's stream, then:
-//   - HLL: atomicMax per lane into the zeroed [S, R] registers;
-//   - CMS: the D x Wc counters privatised in shared memory (128 KiB at
-//     4 x 8192, inside the 227 KB a block may opt in to) and flushed with
-//     one atomicAdd per non-zero counter;
-//   - stats: fixed-order per-block partials, summed in block order by a
-//     second launch, so repeated runs give the same bits on every rank.
+// a single bank without the heads (sketch_kernels.cuh), so both kernels
+// share their device code and their stats order. The HLL and CMS outputs
+// are two views of one buffer, which the launch clears itself: every
+// block clears a share before the grid barrier (the grid has a block per
+// SM at least, so a small batch's clear is spread over the card too), and
+// no atomic comes before the barrier. Then warp-merged
+// atomicMax/atomicAdd into the cleared registers and counters, while
+// block 0 sums the fixed-order per-block stats partials in block order,
+// so repeated runs give the same bits on every rank. One device
+// operation per call.
 
 #include "sketch_kernels.cuh"
 
 extern "C" int sketch_delta_launch(
     const void* svc, const void* log_lat, const void* is_error,
     const void* trace_hi, const void* trace_lo, const void* cidx,
-    const void* valid, int B, int S, int p, int D, int Wc, void* hll,
-    void* cms, void* partials, int n_blocks, void* stats, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(hll, 0, ((size_t)S << p) * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(cms, 0, (size_t)D * Wc * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_sketch(
-      svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid, B, S, p, D,
-      Wc, hll, 0, cms, 0, 1, partials, n_blocks, st);
-  if (err != cudaSuccess) return (int)err;
-  heads_kernel<<<(S + 127) / 128, 128, 0, st>>>(
-      (const float*)partials, n_blocks, S, (float*)stats, 0, nullptr,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr, nullptr, HeadParams{});
-  return (int)cudaGetLastError();
+    const void* valid, int B, int S, int p, int D, int Wc, void* out,
+    void* partials, void* stats, int stat_blocks, int threads,
+    int lanes_per_block, int smem, int grid, void* stream) {
+  const long long n_hll = (long long)S << p;
+  SketchArgs a = {
+      (const int*)svc, (const float*)log_lat, (const float*)is_error,
+      (const int*)trace_hi, (const int*)trace_lo, (const int*)cidx,
+      (const unsigned char*)valid, B, S, p, D, Wc, (int*)out, 0,
+      (int*)out + n_hll, 0, 1, lanes_per_block, stat_blocks, (float*)partials,
+      (float*)stats, (int*)out, n_hll + (long long)D * Wc};
+  return (int)launch_sketch(a, HeadArgs{}, grid, threads, smem, (cudaStream_t)stream);
 }

@@ -168,8 +168,11 @@ def report_unpack(flat, config: DetectorConfig) -> DetectorReport:
 
 
 def detector_init(
-    config: DetectorConfig, device: "torch.device | str" = "cpu"
+    config: DetectorConfig, device: "torch.device | str | None" = None
 ) -> DetectorState:
+    """A zeroed detector state on ``device`` (the card unless the caller
+    names another)."""
+    device = resolve_device(device)
     nw, s, t = config.num_windows, config.num_services, config.num_taus
 
     def zeros(*shape, dtype=torch.float32):
@@ -196,11 +199,13 @@ def detector_init(
 
 
 def state_from_numpy(
-    state_np, device: "torch.device | str" = "cpu"
+    state_np, device: "torch.device | str | None" = None
 ) -> DetectorState:
     """A detector state pulled to numpy (by field name, e.g. the
     reference's ``DetectorState`` after ``jax.device_get``) → this
-    package's state on ``device``, bit for bit."""
+    package's state on ``device`` (the card unless the caller names
+    another), bit for bit."""
+    device = resolve_device(device)
     return DetectorState(
         **{
             name: torch.from_numpy(np.array(getattr(state_np, name), copy=True)).to(device)

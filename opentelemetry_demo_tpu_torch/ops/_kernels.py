@@ -1,7 +1,7 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes one plain C launcher (``<name>_launch``)
-that launches on the caller's stream and returns ``cudaGetLastError()``.
+that launches on the caller's stream and returns the launch's error code.
 This module compiles a source with ``nvcc`` for ``sm_90a`` at its first
 use, into ``build/torch_kernels/`` beside the package (the file name
 carries a hash of the source and the shared ``csrc/*.cuh`` headers, so an
@@ -17,6 +17,7 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,7 +49,9 @@ _ARGTYPES = {
         _P, _P, _P, _P, _P, _P, _P,  # svc log_lat is_error hi lo cidx valid
         _I, _I, _I, _I, _I,  # B S p D Wc
         _P, _L, _P, _L, _I,  # hll hll_ws cms cms_ws n_windows
-        _P, _I, _P, _I,  # partials n_blocks stats fold
+        _P, _P,  # partials stats
+        _I, _I, _I, _I,  # grid threads lanes_per_block smem
+        _I,  # fold
         _P, _P, _P, _P, _P, _P, _P,  # lat_mean lat_var err_mean rate_mean rate_var cusum obs
         _P, _P,  # dt step_idx
         _P, _P, _P,  # lat_z err_z rate_z
@@ -60,13 +63,18 @@ _ARGTYPES = {
     "sketch_delta": [
         _P, _P, _P, _P, _P, _P, _P,  # svc log_lat is_error hi lo cidx valid
         _I, _I, _I, _I, _I,  # B S p D Wc
-        _P, _P, _P, _I, _P,  # hll cms partials n_blocks stats
+        _P, _P, _P,  # out partials stats
+        _I, _I, _I, _I,  # stat_blocks threads lanes_per_block smem
+        _I,  # grid
         _P,  # stream
     ],
 }
 
-# Largest dynamic shared memory an H100 block may opt in to, in bytes.
+# Largest dynamic shared memory an H100 block may opt in to, in bytes,
+# and the streaming multiprocessors of an H100 SXM (launch plans read the
+# card's own count through sm_count).
 SMEM_LIMIT = 232448
+N_SMS = 132
 
 LAUNCHES = {name: 0 for name in _ARGTYPES}
 BUILD_LOG: dict[str, str] = {}
@@ -185,13 +193,21 @@ def launch_cms_hist(keys: torch.Tensor, n_bins: int, counts: torch.Tensor) -> No
     LAUNCHES["cms_hist"] += 1
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch_fused_update(
     *, svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid,
-    num_services, hll_p, cms_width, hll_cur, cms_cur, partials, stats,
+    num_services, hll_p, cms_width, hll_cur, cms_cur, partials, stats, plan,
     heads=None, dt=None, step_idx=None, zs=None, statics=None,
 ) -> None:
-    """Launch the sketch kernel and the stats/heads kernel on the current
-    stream. Tensors are validated by the caller (ops.fused)."""
+    """Launch the sketch kernel (banks, stats and, with ``heads``, the
+    head epilogue) on the current stream, per ``plan`` (a
+    ``fused.SketchPlan``). Tensors are validated by the caller
+    (ops.fused)."""
     b = svc.shape[0]
     d = cidx.shape[0]
     n_windows = hll_cur.shape[0]
@@ -214,7 +230,7 @@ def launch_fused_update(
         _ptr(trace_lo), _ptr(cidx), _ptr(valid),
         b, num_services, hll_p, d, cms_width,
         _ptr(hll_cur), hll_cur.stride(0), _ptr(cms_cur), cms_cur.stride(0),
-        n_windows, _ptr(partials), partials.shape[0], _ptr(stats), int(fold),
+        n_windows, _ptr(partials), _ptr(stats), *plan, int(fold),
         *head_ptrs, *extra, _stream(svc.device),
     )
     _check("fused_update", rc)
@@ -223,18 +239,21 @@ def launch_fused_update(
 
 def launch_sketch_delta(
     *, svc, log_lat, is_error, trace_hi, trace_lo, cidx, valid,
-    num_services, hll_p, cms_width, hll, cms, partials, stats,
+    num_services, hll_p, cms_width, out, partials, stats, plan,
 ) -> None:
-    """Clear ``hll``/``cms`` and launch the delta's sketch and stats
-    kernels on the current stream. Tensors are validated by the caller
+    """Launch the delta's sketch kernel on the current stream, per
+    ``plan`` (a ``fused.SketchPlan``): it clears ``out`` (the HLL
+    registers then the CMS counters, one int32 buffer) and fills it. The
+    plan's blocks own the lanes; the launch adds blocks up to one per SM
+    that only share the clear. Tensors are validated by the caller
     (ops.fused)."""
     fn = _lib("sketch_delta").sketch_delta_launch
     rc = fn(
         _ptr(svc), _ptr(log_lat), _ptr(is_error), _ptr(trace_hi),
         _ptr(trace_lo), _ptr(cidx), _ptr(valid),
         svc.shape[0], num_services, hll_p, cidx.shape[0], cms_width,
-        _ptr(hll), _ptr(cms), _ptr(partials), partials.shape[0], _ptr(stats),
-        _stream(svc.device),
+        _ptr(out), _ptr(partials), _ptr(stats), *plan,
+        max(plan.grid, sm_count(svc.device.index)), _stream(svc.device),
     )
     _check("sketch_delta", rc)
     LAUNCHES["sketch_delta"] += 1

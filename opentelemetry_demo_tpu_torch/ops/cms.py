@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import _kernels
 from .hashing import u32
 
@@ -27,10 +28,13 @@ def cms_init(
     depth: int = CMS_DEPTH,
     width: int = CMS_WIDTH,
     leading: tuple[int, ...] = (),
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> torch.Tensor:
-    """Zeroed count table ``int32[*leading, depth, width]``."""
-    return torch.zeros((*leading, depth, width), dtype=torch.int32, device=device)
+    """Zeroed count table ``int32[*leading, depth, width]`` on ``device``
+    (the card unless the caller names another)."""
+    return torch.zeros(
+        (*leading, depth, width), dtype=torch.int32, device=resolve_device(device)
+    )
 
 
 def cms_indices(

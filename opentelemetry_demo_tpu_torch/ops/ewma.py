@@ -9,11 +9,15 @@ from __future__ import annotations
 
 import torch
 
+from .. import resolve_device
+
 
 def ewma_init(
-    num_keys: int, num_scales: int, device: "torch.device | str" = "cpu"
+    num_keys: int, num_scales: int, device: "torch.device | str | None" = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed (mean, var) state ``float32[num_keys, num_scales]``."""
+    """Zeroed (mean, var) state ``float32[num_keys, num_scales]`` on
+    ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
     shape = (num_keys, num_scales)
     return (
         torch.zeros(shape, dtype=torch.float32, device=device),

@@ -10,9 +10,9 @@ and the per-service moment stats ``stats[4, S]`` = (count, Σlog-lat,
 and, given ``heads``, advances the heads too. Its impls:
 
 - ``"pallas"``: :func:`fused_update` — on a CUDA tensor the hand-written
-  kernel ``csrc/fused_update.cu`` (HLL ``atomicMax`` into every bank,
-  CMS counts privatised in shared memory, fixed-order stats, the head
-  epilogue in a second launch); on a CPU tensor its plain version.
+  kernel ``csrc/fused_update.cu`` (one launch: warp-merged HLL
+  ``atomicMax`` and CMS ``atomicAdd`` into every bank, fixed-order stats,
+  the head epilogue in block 0); on a CPU tensor its plain version.
 - ``"xla"``: the composed path — :func:`sketch_batch_delta` (scatter-max
   HLL, the CMS count through :func:`cms.cms_hist`, matmul segment
   stats), merged into the banks, then :func:`head_update`.
@@ -305,10 +305,10 @@ def fused_update_plain(
     return delta.stats, zs
 
 
-def _check_lanes(name, batch, cidx, hll_p, cms_width) -> None:
+def _check_lanes(name, batch, cidx, hll_p) -> None:
     """What both sketch kernels take: one device, contiguous 1-D lanes of
-    one length, int32 ``cidx[D, B]``, and D x Wc counters that fit a
-    block's shared memory."""
+    one length, int32 ``cidx[D, B]`` with D <= 8, and an HLL precision in
+    [1, 31]."""
     dev = batch[0].device
     if any(t.device != dev for t in (*batch, cidx)):
         raise ValueError(f"{name}: all tensors must be on one device")
@@ -325,23 +325,71 @@ def _check_lanes(name, batch, cidx, hll_p, cms_width) -> None:
         raise ValueError(f"{name}: cidx must be contiguous int32 [D, B]")
     if not 1 <= hll_p <= 31:
         raise ValueError(f"{name}: hll_p={hll_p} out of range")
-    if cidx.shape[0] * cms_width * 4 > _kernels.SMEM_LIMIT:
+    if cidx.shape[0] > _SKETCH_MAX_DEPTH:
         raise ValueError(
-            f"{name} keeps the D x Wc CMS counters in shared memory; "
-            f"an H100 block has at most {_kernels.SMEM_LIMIT} B"
+            f"{name} keeps at most {_SKETCH_MAX_DEPTH} CMS rows a lane in registers"
         )
 
 
-def _n_blocks(b: int) -> int:
-    """Blocks of 512 lanes, at most one per SM of the H100."""
-    return max(1, min(132, -(-b // 512)))
+class SketchPlan(NamedTuple):
+    """How the sketch kernel of ``fused_update`` and ``sketch_delta`` is
+    launched for one batch."""
+
+    grid: int  # blocks
+    threads: int  # threads per block
+    lanes_per_block: int  # each block's run of lanes; the last may be short
+    smem_bytes: int  # dynamic shared memory per block
+
+
+# Threads per block of the sketch kernel at most (its __launch_bounds__),
+# and the CMS rows a lane keeps in registers (kMaxDepth).
+_SKETCH_MAX_THREADS = 512
+_SKETCH_MAX_DEPTH = 8
+# Lanes per block at least: at B = 2048, runs of 32 or 64 lanes (64 or 32
+# blocks) were slower on the H100 than 16 blocks of 128 (PERF.md): the
+# kernel waits on memory, and more blocks add partials to sum.
+_SKETCH_MIN_LANES = 128
+# Dynamic shared memory a block gets without opting in to more, in floats.
+_SKETCH_SMEM_FLOATS = 48 * 1024 // 4
+
+
+def launch_plan(b: int, num_services: int, n_sms: int = _kernels.N_SMS) -> SketchPlan:
+    """The sketch kernel's launch for ``b`` lanes and ``num_services``
+    services on a card of ``n_sms`` SMs: at most one block per SM, each
+    over a run of whole 32-lane warp slices (at least 128 lanes), one
+    thread per lane up to 512, so the grid spreads a batch over as many
+    SMs as its lanes allow and each warp loads its lanes once. It depends
+    on the batch and the card alone (not on the CMS depth or the window
+    count), so ``fused_update`` and ``sketch_delta`` sum the stats of one
+    batch in the same order.
+
+    Shared memory holds each warp's stats ``[4, S]`` and a 32-lane
+    staging slice, block 0's chunk sums (a float a thread) and its copy of
+    the services' observation counts and CUSUMs ``[4, S]``. The plan keeps
+    it under the default 48 KB, with fewer warps for many services (each
+    then walks more slices); a service count whose single warp does not
+    fit raises.
+    """
+    s = num_services
+    per_sm = -(-b // n_sms)
+    lanes = max(_SKETCH_MIN_LANES, -(-per_sm // 32) * 32)
+    max_warps = (_SKETCH_SMEM_FLOATS - 4 * s) // (4 * s + 64 + 32)
+    if max_warps < 1:
+        raise ValueError(
+            f"the sketch kernel keeps stats for {s} services in shared memory "
+            f"({(8 * s + 96) * 4} B for one warp); a block has {_SKETCH_SMEM_FLOATS * 4} B "
+            "without opting in"
+        )
+    threads = min(_SKETCH_MAX_THREADS, lanes, 32 * max_warps)
+    smem = ((threads // 32) * (4 * s + 64) + threads + 4 * s) * 4
+    return SketchPlan(max(1, -(-b // lanes)), threads, lanes, smem)
 
 
 def _check_kernel_args(hll_cur, cms_cur, batch, cidx, heads, hll_p) -> None:
     dev = hll_cur.device
     if any(t.device != dev for t in [cms_cur, batch[0], *(heads or ())]):
         raise ValueError("fused_update: all tensors must be on one device")
-    _check_lanes("fused_update", batch, cidx, hll_p, cms_cur.shape[-1])
+    _check_lanes("fused_update", batch, cidx, hll_p)
     for name, bank in (("hll_cur", hll_cur), ("cms_cur", cms_cur)):
         if (
             bank.dtype != torch.int32
@@ -395,8 +443,8 @@ def fused_update(
     batch = (svc, log_lat, is_error, trace_hi, trace_lo, valid)
     _check_kernel_args(hll_cur, cms_cur, batch, cidx, heads, hll_p)
     s = num_services
-    n_blocks = _n_blocks(svc.shape[0])
-    partials = torch.empty((n_blocks, 4, s), dtype=torch.float32, device=dev)
+    plan = launch_plan(svc.shape[0], s, _kernels.sm_count(dev.index))
+    partials = torch.empty((plan.grid, 4, s), dtype=torch.float32, device=dev)
     stats = torch.empty((4, s), dtype=torch.float32, device=dev)
     zs = None
     step_idx = None
@@ -409,8 +457,8 @@ def fused_update(
         svc=svc, log_lat=log_lat, is_error=is_error, trace_hi=trace_hi,
         trace_lo=trace_lo, cidx=cidx, valid=valid, num_services=s,
         hll_p=hll_p, cms_width=cms_cur.shape[2], hll_cur=hll_cur,
-        cms_cur=cms_cur, partials=partials, stats=stats, heads=heads,
-        dt=dt, step_idx=step_idx, zs=zs, statics=statics,
+        cms_cur=cms_cur, partials=partials, stats=stats, plan=plan,
+        heads=heads, dt=dt, step_idx=step_idx, zs=zs, statics=statics,
     )
     return stats if heads is None else (stats, zs)
 
@@ -441,21 +489,22 @@ def sketch_delta(
         raise ValueError(f"sketch_delta has no kernel for device {dev}")
     _check_lanes(
         "sketch_delta", (svc, log_lat, is_error, trace_hi, trace_lo, valid),
-        cidx, hll_p, cms_width,
+        cidx, hll_p,
     )
-    s, d = num_services, cidx.shape[0]
+    s, d, r = num_services, cidx.shape[0], 1 << hll_p
+    plan = launch_plan(svc.shape[0], s, _kernels.sm_count(dev.index))
+    # One buffer for both integer outputs; the kernel clears it.
+    out = torch.empty(s * r + d * cms_width, dtype=torch.int32, device=dev)
     delta = SketchDelta(
-        hll=torch.empty((s, 1 << hll_p), dtype=torch.int32, device=dev),
-        cms=torch.empty((d, cms_width), dtype=torch.int32, device=dev),
+        hll=out[: s * r].view(s, r),
+        cms=out[s * r:].view(d, cms_width),
         stats=torch.empty((4, s), dtype=torch.float32, device=dev),
     )
-    partials = torch.empty(
-        (_n_blocks(svc.shape[0]), 4, s), dtype=torch.float32, device=dev
-    )
+    partials = torch.empty((plan.grid, 4, s), dtype=torch.float32, device=dev)
     _kernels.launch_sketch_delta(
         svc=svc, log_lat=log_lat, is_error=is_error, trace_hi=trace_hi,
-        trace_lo=trace_lo, cidx=cidx, valid=valid, **kw, hll=delta.hll,
-        cms=delta.cms, partials=partials, stats=delta.stats,
+        trace_lo=trace_lo, cidx=cidx, valid=valid, **kw, out=out,
+        partials=partials, stats=delta.stats, plan=plan,
     )
     return delta
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 _SPLIT_GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _SPLIT_M1 = np.uint64(0xBF58476D1CE4E5B9)
 _SPLIT_M2 = np.uint64(0x94D049BB133111EB)
@@ -85,9 +87,14 @@ def hash_u32_pair(
 
 
 def hash_spans_synthetic(
-    start: int, batch: int, seed: int = 0, device: "torch.device | str" = "cpu"
+    start: int,
+    batch: int,
+    seed: int = 0,
+    device: "torch.device | str | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Synthetic span-key hashes for the counter range
-    ``[start, start+batch)``, made on ``device``."""
-    x = (torch.arange(batch, dtype=torch.int64, device=device) + start) & _U32
+    ``[start, start+batch)``, made on ``device`` (the card unless the
+    caller names another)."""
+    x = torch.arange(batch, dtype=torch.int64, device=resolve_device(device))
+    x = (x + start) & _U32
     return hash_u32_pair(as_i32(x), seed=seed)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .hashing import u32
 
 HLL_P = 12
@@ -20,10 +21,13 @@ def hll_init(
     num_keys: int,
     p: int = HLL_P,
     leading: tuple[int, ...] = (),
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> torch.Tensor:
-    """Zeroed register bank ``int32[*leading, num_keys, 2**p]``."""
-    return torch.zeros((*leading, num_keys, 1 << p), dtype=torch.int32, device=device)
+    """Zeroed register bank ``int32[*leading, num_keys, 2**p]`` on
+    ``device`` (the card unless the caller names another)."""
+    return torch.zeros(
+        (*leading, num_keys, 1 << p), dtype=torch.int32, device=resolve_device(device)
+    )
 
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:

@@ -185,5 +185,5 @@ def make_sharded_step(
         host_staged=host_staged(mesh.device),
     )
     step = functools.partial(detector_step, config, comm=comm)
-    state = place_state(detector_init(config), mesh)
+    state = place_state(detector_init(config, mesh.device), mesh)
     return step, state

@@ -14,8 +14,13 @@ import torch
 from opentelemetry_demo_tpu.models import detector as jdet
 from opentelemetry_demo_tpu.runtime import qualbench
 from opentelemetry_demo_tpu.runtime.tensorize import SpanTensorizer as JSpanTensorizer
+from opentelemetry_demo_tpu_torch import resolve_device
 from opentelemetry_demo_tpu_torch.models import detector as tdet
 from opentelemetry_demo_tpu_torch.ops import _kernels
+from opentelemetry_demo_tpu_torch.ops import cms as tcms
+from opentelemetry_demo_tpu_torch.ops import ewma as tewma
+from opentelemetry_demo_tpu_torch.ops import hashing as thashing
+from opentelemetry_demo_tpu_torch.ops import hll as thll
 
 # float32 sums taken in another order (one-hot products, per-block
 # partials), and exp/log/sqrt from another math library, move each step
@@ -155,6 +160,29 @@ def test_state_from_numpy_is_a_copy(rng):
     state = tdet.state_from_numpy(src, device="cpu")
     state.cms_bank.add_(1)
     assert int(np.asarray(src.cms_bank).sum()) == 0
+
+
+_STATE_NP = tdet.DetectorState(*(np.zeros(1, np.float32) for _ in tdet.DetectorState._fields))
+_DEFAULT_DEVICE_CALLS = {
+    "detector_init": lambda: tdet.detector_init(tdet.DetectorConfig(**SMALL)),
+    "state_from_numpy": lambda: tdet.state_from_numpy(_STATE_NP),
+    "hll_init": lambda: thll.hll_init(4, p=8),
+    "cms_init": lambda: tcms.cms_init(2, 64),
+    "ewma_init": lambda: tewma.ewma_init(4, 3),
+    "hash_spans_synthetic": lambda: thashing.hash_spans_synthetic(0, 16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DEFAULT_DEVICE_CALLS))
+def test_device_none_means_the_card(monkeypatch, name):
+    """With no device named, each entry point takes the card, and without
+    one it raises instead of carrying on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _DEFAULT_DEVICE_CALLS[name]()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
 
 
 def test_reference_report_unpack_reads_the_packed_report(rng):

@@ -117,7 +117,7 @@ def test_device_hashes_equal_reference(rng, seed):
     ):
         np.testing.assert_array_equal(_i32_as_u32(got), np.asarray(want))
     for got, want in zip(
-        hashing.hash_spans_synthetic(123456, 1000, seed=seed),
+        hashing.hash_spans_synthetic(123456, 1000, seed=seed, device="cpu"),
         jhashing.hash_spans_synthetic(123456, 1000, seed=seed),
     ):
         np.testing.assert_array_equal(_i32_as_u32(got), np.asarray(want))
@@ -391,6 +391,67 @@ def test_sketch_batch_update_heads_require_constants(rng):
         )
 
 
+PLAN_WIDTHS = sorted({1, 2, 31, 32, 33, 127, 128, 129, 1000, 2047, 2048, 2049, 3001,
+                      8192, 16896, 17000, 32768, 40000, 65535, 65536, 67585, 140001})
+
+
+def _check_plan(plan, b, s, n_sms):
+    assert 1 <= plan.grid <= n_sms, (b, plan)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert plan.lanes_per_block % 32 == 0 and plan.lanes_per_block >= plan.threads
+    assert (plan.grid - 1) * plan.lanes_per_block < b <= plan.grid * plan.lanes_per_block
+    warps = plan.threads // 32
+    assert plan.smem_bytes == (warps * (4 * s + 64) + plan.threads + 4 * s) * 4
+    assert plan.smem_bytes <= 48 * 1024 <= _kernels.SMEM_LIMIT
+    # The grid spreads the lanes: one block per 128 lanes until the card
+    # is three quarters full.
+    assert plan.grid >= min(-(-b // 128), 3 * n_sms // 4), (b, plan)
+
+
+@pytest.mark.parametrize("s,d", [(16, 2), (16, 4), (32, 2), (32, 4)])
+def test_sketch_launch_plan_fits_the_h100(s, d):
+    """The sketch kernel's launch plan, B = 1 … 65536: at most one block
+    per SM, warp-slice runs of lanes that cover the batch exactly once,
+    shared memory under the default 48 KB (so no opt-in) and far under
+    the H100's limit, and no thread block clusters (so the portable
+    cluster size of 8 is never exceeded). The plan depends on the batch,
+    the service count and the card only, so K1 and K3 sum one batch's
+    stats in the same order whatever the CMS depth ``d``."""
+    for b in PLAN_WIDTHS:
+        plan = fused.launch_plan(b, s)
+        assert plan == fused.launch_plan(b, s) == fused.launch_plan(b, s, _kernels.N_SMS)
+        _check_plan(plan, b, s, _kernels.N_SMS)
+        assert plan.threads == min(512, plan.lanes_per_block)
+    assert fused.launch_plan(0, s).grid == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.launch_plan(2048, 20000)
+
+
+@pytest.mark.parametrize("n_sms", [114, 132])
+@pytest.mark.parametrize("s", [64, 192, 1000, 1524])
+def test_sketch_launch_plan_many_services_stays_under_48kb(s, n_sms):
+    """Many services fill shared memory with per-warp stats: the plan
+    takes fewer warps (each walking more slices) rather than opting in to
+    more than 48 KB, on an H100 SXM (132 SMs) or PCIe (114 SMs), and
+    raises only past the count whose single warp does not fit."""
+    for b in PLAN_WIDTHS:
+        plan = fused.launch_plan(b, s, n_sms)
+        _check_plan(plan, b, s, n_sms)
+        # As many warps as a thread per lane, 512 and 48 KB allow.
+        one_more = (plan.threads // 32 + 1) * (4 * s + 96) + 4 * s
+        assert plan.threads == min(512, plan.lanes_per_block) or one_more > 48 * 1024 // 4
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.launch_plan(2048, 1525, n_sms)
+
+
+def test_sketch_kernels_refuse_more_cms_rows_than_a_lane_keeps():
+    batch = _torch_args(_batch(np.random.default_rng(0), 64, 8, 8, 512))
+    lanes = (*batch[:5], batch[6])
+    fused._check_lanes("sketch_delta", lanes, batch[5], 8)
+    with pytest.raises(ValueError, match="at most 8 CMS rows"):
+        fused._check_lanes("sketch_delta", lanes, torch.cat([batch[5], batch[5][:1]]), 8)
+
+
 def test_resolve_impl_by_device():
     assert fused.resolve_impl(None, torch.device("cuda")) == "pallas"
     assert fused.resolve_impl(None, torch.device("cpu")) == "xla"
@@ -491,3 +552,136 @@ def test_cms_hist_kernel_matches_plain(rng, cuda_device):
     got = cms.cms_hist(keys, n_bins)
     assert _kernels.LAUNCHES["cms_hist"] == before + 1
     assert torch.equal(got.cpu(), cms.cms_hist_plain(keys.cpu(), n_bins))
+
+
+def _edge_batch(rng, case, b, s, d, w, p):
+    """A batch for the sketch kernels' edge cases: ``hot`` puts every lane
+    on one service, one CMS counter per row and one HLL bucket (ranks
+    still differ); ``invalid`` marks every lane invalid; ``random`` is the
+    usual recipe (used at B = 1 and at a width that no block divides)."""
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    if case == "hot":
+        batch["svc"][:] = 3
+        batch["valid"][:] = True
+        batch["cidx"] = np.ascontiguousarray(
+            np.broadcast_to((np.arange(d, dtype=np.int32) * 101 + 7)[:, None], (d, b))
+        )
+        batch["trace_lo"] = (batch["trace_lo"] & ~np.uint32((1 << p) - 1)) | np.uint32(5)
+    elif case == "invalid":
+        batch["valid"][:] = False
+    return batch
+
+
+# B = 140001: more lanes than 512 threads on each of the 132 SMs take in
+# one pass, so each warp walks several slices.
+EDGE_CASES = [
+    ("hot", 2048), ("hot", 65536), ("invalid", 2048), ("random", 1), ("random", 3001),
+    ("random", 140001),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,b", EDGE_CASES)
+def test_fused_update_kernel_edge_cases(rng, cuda_device, case, b):
+    """K1 twice and its plain version once on the same inputs: banks
+    exact, floats within tolerance, the two launches bit for bit."""
+    s, p, d, w = 32, 12, 4, 8192
+    batch = _edge_batch(rng, case, b, s, d, w, p)
+    args = [t.to(cuda_device) for t in _torch_args(batch)]
+    hll_bank = torch.from_numpy(rng.integers(0, 20, (3, 2, s, 1 << p)).astype(np.int32)).to(cuda_device)
+    cms_bank = torch.from_numpy(rng.integers(0, 99, (3, 2, d, w)).astype(np.int32)).to(cuda_device)
+    heads = _heads_np(rng, s)
+    outs = []
+    for update in (fused.fused_update, fused.fused_update, fused.fused_update_plain):
+        hb, cb = hll_bank.clone(), cms_bank.clone()
+        hs = fused.HeadState(**{k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in heads.items()})
+        stats, zs = update(
+            hb[:, 0], cb[:, 0], *args, num_services=s, hll_p=p, heads=hs,
+            dt=torch.tensor(0.25, device=cuda_device),
+            step_pos=torch.tensor(3, dtype=torch.int32, device=cuda_device), statics=HEAD_KW,
+        )
+        torch.cuda.synchronize()
+        outs.append([hb.cpu(), cb.cpu(), stats.cpu(), *(h.cpu() for h in hs), *(z.cpu() for z in zs)])
+    kernel, again, plain = outs
+    assert torch.equal(kernel[0], plain[0]) and torch.equal(kernel[1], plain[1])
+    for a, b_ in zip(kernel[2:], plain[2:]):
+        _assert_close(b_, a)
+    assert all(torch.equal(a, b_) for a, b_ in zip(kernel, again))
+    if case == "invalid":
+        assert int(kernel[2].abs().sum()) == 0 and torch.equal(kernel[1], cms_bank.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,b", EDGE_CASES)
+@pytest.mark.parametrize("s,d", [(32, 4), (16, 2)])
+def test_sketch_delta_kernel_edge_cases(rng, cuda_device, case, b, s, d):
+    """K3 twice and its plain version once: integers exact, stats within
+    tolerance, the two launches bit for bit."""
+    p, w = 12, 8192
+    batch = _edge_batch(rng, case, b, s, d, w, p)
+    args = [t.to(cuda_device) for t in _torch_args(batch)]
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    got = fused.sketch_delta(*args, **kw)
+    again = fused.sketch_delta(*args, **kw)
+    want = fused.sketch_delta_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.hll, want.hll) and torch.equal(got.cms, want.cms)
+    _assert_close(want.stats.cpu(), got.stats.cpu())
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    if case == "hot":
+        assert int(got.cms.sum()) == b * d and int((got.hll > 0).sum()) == 1
+
+
+# Service counts whose head cells outnumber block 0's threads (128 at
+# B = 2048), so the epilogue runs several passes, and one whose stats
+# leave room for only two warps a block.
+MANY_SERVICES = [(2048, 64), (2048, 192), (8192, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", MANY_SERVICES)
+def test_fused_update_kernel_many_services(rng, cuda_device, b, s):
+    """K1 with heads at many services, twice, against its plain version:
+    every cell reads its service's observation count and CUSUM as they
+    were before the launch, whichever pass or warp writes them."""
+    p, d, w = 12, 4, 8192
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    args = [t.to(cuda_device) for t in _torch_args(batch)]
+    hll_bank = torch.from_numpy(rng.integers(0, 20, (3, s, 1 << p)).astype(np.int32)).to(cuda_device)
+    cms_bank = torch.from_numpy(rng.integers(0, 99, (3, d, w)).astype(np.int32)).to(cuda_device)
+    heads = _heads_np(rng, s)
+    # Around the warmups, so the flags the observation count sets differ
+    # between services.
+    heads["obs_batches"] = rng.integers(0, 2 * int(HEAD_KW["warmup_batches"]) + 2, s).astype(np.float32)
+    outs = []
+    for update in (fused.fused_update, fused.fused_update, fused.fused_update_plain):
+        hb, cb = hll_bank.clone(), cms_bank.clone()
+        hs = fused.HeadState(**{k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in heads.items()})
+        stats, zs = update(
+            hb, cb, *args, num_services=s, hll_p=p, heads=hs,
+            dt=torch.tensor(0.25, device=cuda_device),
+            step_pos=torch.tensor(3, dtype=torch.int32, device=cuda_device), statics=HEAD_KW,
+        )
+        torch.cuda.synchronize()
+        outs.append([hb.cpu(), cb.cpu(), stats.cpu(), *(h.cpu() for h in hs), *(z.cpu() for z in zs)])
+    kernel, again, plain = outs
+    assert torch.equal(kernel[0], plain[0]) and torch.equal(kernel[1], plain[1])
+    for a, b_ in zip(kernel[2:], plain[2:]):
+        _assert_close(b_, a)
+    assert all(torch.equal(a, b_) for a, b_ in zip(kernel, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", MANY_SERVICES)
+def test_sketch_delta_kernel_many_services(rng, cuda_device, b, s):
+    p, d, w = 12, 4, 8192
+    batch = _batch(rng, b, s, d, w, svc_lo=-3, svc_hi=s + 3)
+    args = [t.to(cuda_device) for t in _torch_args(batch)]
+    kw = dict(num_services=s, hll_p=p, cms_width=w)
+    got = fused.sketch_delta(*args, **kw)
+    again = fused.sketch_delta(*args, **kw)
+    want = fused.sketch_delta_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.hll, want.hll) and torch.equal(got.cms, want.cms)
+    _assert_close(want.stats.cpu(), got.stats.cpu())
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))

@@ -163,7 +163,7 @@ def jax_runs():
 def _single_device(sc):
     """The port's single-device step on the CPU over a scenario."""
     cfg = sc.config
-    state = tdet.detector_init(cfg)
+    state = tdet.detector_init(cfg, "cpu")
     reports = []
     for batch, rot in zip(sc.batches, sc.rotates):
         lanes = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x) for x in batch]
@@ -346,7 +346,7 @@ def test_comm_merge_routing(monkeypatch):
 
 def test_place_state_takes_this_ranks_sketch_slice(rng):
     cfg = tdet.DetectorConfig(**BASE)
-    glob = tdet.state_to_numpy(tdet.detector_init(cfg))
+    glob = tdet.state_to_numpy(tdet.detector_init(cfg, "cpu"))
     glob = tdet.DetectorState(*(
         (rng.random(x.shape) * 100).astype(x.dtype) for x in glob
     ))
