@@ -339,23 +339,108 @@ def phase_fused_update(cfg, device, results):
     results["fused_update"] = {"max_abs_err": worst}
 
 
-def phase_cms_hist(cfg, device, results):
-    """K2 against its plain version at B = 65536 (D·B keys, with sentinels)."""
+def flat_keys(idx, valid, width):
+    """``idx[D, B]`` as the flat keys ``row·width + index`` with the
+    sentinel ``D·width`` on invalid lanes: ``cms_hist``'s input for the
+    count ``cms_count`` makes."""
+    d = idx.shape[0]
+    rows = torch.arange(d, dtype=torch.int32, device=idx.device)[:, None] * width
+    return torch.where(valid[None, :], idx + rows, d * width).reshape(-1).contiguous()
+
+
+def hist_cases(rng, cfg, device):
+    """``(name, idx[D, B], valid, W)`` for K2: the composed path's call at
+    B = 65536 with the smoke's Zipf(1.3) attributes and with uniform keys,
+    hot keys (every key on one counter per row), no valid lane, one key,
+    a ragged lane count, and 65,536 and 131,072 bins."""
+    d, w = cfg.cms_depth, cfg.cms_width
+    main = batch_lanes(rng, cfg, 65536, device)
+    uniform = torch.from_numpy(rng.integers(0, w, (d, 65536)).astype(np.int32)).to(device)
+    hot = (torch.arange(d, dtype=torch.int32, device=device)[:, None] * 101 + 7).expand(d, 65536).contiguous()
+    ones = torch.ones(65536, dtype=torch.bool, device=device)
+    ragged = batch_lanes(rng, cfg, 3001, device)
+    cases = [
+        ("B=65536 Zipf", main["cidx"], main["valid"], w),
+        ("B=65536 uniform", uniform, main["valid"], w),
+        ("hot keys B=65536", hot, ones, w),
+        ("no valid lane B=2048", main["cidx"][:, :2048].contiguous(), torch.zeros_like(ones[:2048]), w),
+        ("one key", main["cidx"][:1, :1].contiguous(), ones[:1], w),
+        ("ragged 3001 x 4", ragged["cidx"], ragged["valid"], w),
+    ]
+    for width in (16384, 32768):
+        wide = batch_lanes(rng, cfg._replace(cms_width=width), 65536, device)
+        cases.append((f"{d * width} bins", wide["cidx"], wide["valid"], width))
+    return cases
+
+
+def check_k2(idx, valid, width, what) -> None:
+    """Both entries of K2 twice and their plain versions once: bit-exact,
+    the two launches bit-identical, every valid lane counted once a row."""
     from opentelemetry_demo_tpu_torch.ops import cms
 
-    rng = np.random.default_rng(2)
-    lanes = batch_lanes(rng, cfg, 65536, device)
-    n_bins = cfg.cms_depth * cfg.cms_width
-    rows = torch.arange(cfg.cms_depth, dtype=torch.int32, device=device)[:, None] * cfg.cms_width
-    keys = torch.where(lanes["valid"][None, :], lanes["cidx"] + rows, n_bins).reshape(-1)
-    check(int((keys == n_bins).sum()) > 0, "no sentinel keys")
-    got = cms.cms_hist(keys, n_bins)
-    want = cms.cms_hist_plain(keys, n_bins)
+    d = idx.shape[0]
+    keys = flat_keys(idx, valid, width)
+    counts = [cms.cms_count(idx, valid, width) for _ in range(2)]
+    hists = [cms.cms_hist(keys, d * width) for _ in range(2)]
+    want = cms.cms_count_plain(idx, valid, width)
+    want_flat = cms.cms_hist_plain(keys, d * width)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "cms_hist differs from its plain version")
-    check(int(got.sum()) == int((keys < n_bins).sum()), "cms_hist lost keys")
-    print(f"cms_hist {keys.numel()} keys, {n_bins} bins: exact")
+    for i in range(2):
+        check(torch.equal(counts[i], want), f"cms_count differs from its plain version ({what}, launch {i})")
+        check(torch.equal(hists[i], want_flat), f"cms_hist differs from its plain version ({what}, launch {i})")
+    check(torch.equal(want_flat.view(d, width), want), f"cms_hist and cms_count disagree ({what})")
+    check(int(want.sum()) == d * int(valid.sum()), f"cms_count lost keys ({what})")
+    print(f"cms_hist {what}: cms_count and cms_hist ({d} x {idx.shape[1]} keys, {d * width} bins) "
+          "exact, repeat bit-identical")
+
+
+def phase_cms_hist(cfg, device, results):
+    """K2's two entries against their plain versions on its cases."""
+    rng = np.random.default_rng(2)
+    for what, idx, valid, width in hist_cases(rng, cfg, device):
+        check_k2(idx, valid, width, what)
     results["cms_hist"] = {"max_abs_err": 0.0}
+
+
+def phase_wide_cms(device):
+    """A few detector steps with ``sketch_impl="xla"`` at 65,536 and
+    131,072 CMS bins (D = 4) on the card against the CPU: the histogram
+    kernel once raised past 58,112 bins."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    for width in (16384, 32768):
+        cfg = DetectorConfig(cms_width=width, sketch_impl="xla")
+        rng = np.random.default_rng(8)
+        tz = SpanTensorizer(cfg.num_services, 2048)
+        card = AnomalyDetector(cfg, device=device)
+        cpu = AnomalyDetector(cfg, device="cpu")
+        before = _kernels.LAUNCHES["cms_hist"]
+        for step in range(3):
+            n = 2000
+            batch = tz.pack_arrays(
+                rng.integers(0, N_SERVICES, n).astype(np.int32), rng.gamma(4.0, 250.0, n).astype(np.float32),
+                rng.integers(0, 2**63, n, dtype=np.uint64), (rng.random(n) < 0.02).astype(np.float32),
+                rng.zipf(1.3, n).astype(np.uint64),
+            )
+            g = card.observe(batch, step * DT_S)
+            c = cpu.observe(batch, step * DT_S)
+            for name, a, p in zip(c._fields, g, c):
+                a = a.cpu()
+                if name == "flags":
+                    check(torch.equal(a, p), f"flags differ at step {step} (cms_width={width})")
+                else:
+                    check(close(a, p), f"{name} differs at step {step} (cms_width={width}): {max_err(a, p)}")
+        got, want = state_to_numpy(card.state), state_to_numpy(cpu.state)
+        for name in got._fields:
+            a, p = getattr(got, name), getattr(want, name)
+            ok = np.array_equal(a, p) if a.dtype.kind != "f" else np.allclose(a, p, rtol=RTOL, atol=ATOL)
+            check(ok, f"state {name} differs (cms_width={width})")
+        check(_kernels.LAUNCHES["cms_hist"] == before + 3, "cms_hist not launched once a step")
+        print(f"detector sketch_impl='xla' cms_width={width} ({cfg.cms_depth * width} bins): "
+              "3 steps on the card == CPU")
 
 
 def check_k3(args, kw, what, nonempty=True) -> float:
@@ -670,7 +755,8 @@ def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, res
 
 
 def phase_step_time(device, impl, width):
-    """One detector step at this width: ``(device ms, wall ms)``."""
+    """One detector step at this width: ``(device ms, wall ms, device
+    operations per step)``, the last from ``profile_ops``."""
     from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
     from opentelemetry_demo_tpu_torch.models.detector import detector_step, report_pack
     from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
@@ -688,7 +774,7 @@ def phase_step_time(device, impl, width):
     def step():
         report_pack(detector_step(det.config, det.state, *args)[1])
 
-    return time_ms(step, 5)
+    return (*time_ms(step, 5), profile_ops(step, 20))
 
 
 def profile_ops(fn, iters: int = 50) -> dict:
@@ -782,19 +868,27 @@ def phase_times(cfg, device, results):
 
     lanes = batch_lanes(rng, cfg, 65536, device)
     n_bins = cfg.cms_depth * cfg.cms_width
-    rows = torch.arange(cfg.cms_depth, dtype=torch.int32, device=device)[:, None] * cfg.cms_width
-    keys = torch.where(lanes["valid"][None, :], lanes["cidx"] + rows, n_bins).reshape(-1).contiguous()
+    keys = flat_keys(lanes["cidx"], lanes["valid"], cfg.cms_width)
+    idx, valid, width = lanes["cidx"], lanes["valid"], cfg.cms_width
     k2 = results["cms_hist"]
+    # cms_hist on the flat keys (the shape every tree can time, so a
+    # parent and a change compare in turns); cms_count on the lanes, the
+    # call the composed path makes: each lane's D indices and valid byte
+    # read once, the counts written once.
     k2["shapes"] = {f"{keys.numel()} keys": dict(
         time_kernel(lambda: cms.cms_hist_plain(keys, n_bins), lambda: cms.cms_hist(keys, n_bins), 20),
         bound_ms=(keys.numel() * 4 + n_bins * 4) / HBM_BYTES_PER_S * 1e3,
     )}
-    k2.update(next(iter(k2["shapes"].values())))
-    # The yardstick: one PyTorch call computing the same histogram. Its
-    # wall time includes a host read (bincount sizes its output from the
-    # keys' maximum); its device time is the sum over the CUDA kernels the
-    # profiler sees in the call (its memsets and its copy of the maximum
-    # to the host are listed beside it).
+    k2["shapes"][f"cms_count B={idx.shape[1]} D={idx.shape[0]}"] = dict(
+        time_kernel(lambda: cms.cms_count_plain(idx, valid, width), lambda: cms.cms_count(idx, valid, width), 20),
+        bound_ms=(idx.shape[1] * (4 * idx.shape[0] + 1) + n_bins * 4) / HBM_BYTES_PER_S * 1e3,
+    )
+    k2.update(k2["shapes"][f"cms_count B={idx.shape[1]} D={idx.shape[0]}"])
+    # The yardstick: one PyTorch call computing the same histogram from
+    # the flat keys. Its wall time includes a host read (bincount sizes
+    # its output from the keys' maximum); its device time is the sum over
+    # the CUDA kernels the profiler sees in the call (its memsets and its
+    # copy of the maximum to the host are listed beside it).
     library = lambda: torch.bincount(keys, minlength=n_bins + 1)[:n_bins]  # noqa: E731
     k2["library_wall_ms"] = time_ms(library, 50)[1]
     k2["library_breakdown"] = profile_ops(library)
@@ -824,6 +918,64 @@ def phase_times(cfg, device, results):
             print(f"  device operations per call ({name} {label}): {show_breakdown(t['breakdown'])}")
     print(f"time torch.bincount (yardstick of cms_hist): device {k2['library_ms']} ms "
           f"({show_breakdown(k2['library_breakdown'])}), wall {k2['library_wall_ms']:.5f} ms")
+
+
+def phase_alt(cfg, device) -> dict:
+    """K2 against two measured designs on the same inputs: the
+    alternative (a thread-block cluster holding the bins in distributed
+    shared memory) and a design step (the warps' counts merged again per
+    block in a shared-memory table). Each is checked, then timed in turns
+    (kernel, variant, variant, kernel)."""
+    from opentelemetry_demo_tpu_torch.ops import _kernels, cms
+
+    rng = np.random.default_rng(9)
+    out = {}
+    shapes = []
+    for width in (cfg.cms_width, 16384, 32768):
+        lanes = batch_lanes(rng, cfg._replace(cms_width=width), 65536, device)
+        shapes.append((f"cms_count B=65536 D=4 W={width}", lanes["cidx"], lanes["valid"], width))
+        if width == cfg.cms_width:
+            keys = flat_keys(lanes["cidx"], lanes["valid"], width).view(1, -1)
+            shapes.append((f"flat {keys.numel()} keys into {4 * width} bins", keys, None, 4 * width))
+            uniform = torch.from_numpy(rng.integers(0, width, (4, 65536)).astype(np.int32)).to(device)
+            shapes.append(("uniform B=65536 W=8192", uniform, lanes["valid"], width))
+            shapes.append(("no valid lane B=65536 W=8192", lanes["cidx"], torch.zeros_like(lanes["valid"]), width))
+            shapes.append(("B=1 W=8192", lanes["cidx"][:, :1].contiguous(), lanes["valid"][:1], width))
+    hot = (torch.arange(4, dtype=torch.int32, device=device)[:, None] * 101 + 7).expand(4, 65536).contiguous()
+    shapes.append(("hot keys B=65536 W=8192", hot, torch.ones(65536, dtype=torch.bool, device=device), 8192))
+    coop = True
+    for what, idx, valid, width in shapes:
+        def cluster(idx=idx, valid=valid, width=width):
+            o = torch.empty((idx.shape[0], width), dtype=torch.int32, device=device)
+            _kernels.launch_cms_hist_cluster(idx, valid, width, o, coop)
+            return o
+
+        def cached(idx=idx, valid=valid, width=width):
+            o = torch.empty((idx.shape[0], width), dtype=torch.int32, device=device)
+            _kernels.launch_cms_hist_cached(idx, valid, width, o)
+            return o
+
+        want = cms.cms_count_plain(idx, valid, width)
+        try:
+            got = cluster()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"alt: cooperative cluster launch refused ({e}); a memset clears instead")
+            coop = False
+            got = cluster()
+            torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(cluster(), want), f"cluster alternative differs ({what})")
+        check(torch.equal(cached(), want) and torch.equal(cached(), want), f"cached step differs ({what})")
+        kernel = lambda idx=idx, valid=valid, width=width: cms.cms_count(idx, valid, width)  # noqa: E731
+        row = {"coop": coop}
+        for name, fn in (("cluster", cluster), ("cached", cached)):
+            turns = [time_ms(f, 200) for f in (kernel, fn, fn, kernel)]
+            row[name] = dict(turns=turns, kernel_ops=profile_ops(kernel), ops=profile_ops(fn))
+            print(f"alt {what}: kernel {turns[0][0]:.5f} / {turns[3][0]:.5f} ms, {name} "
+                  f"{turns[1][0]:.5f} / {turns[2][0]:.5f} ms; kernel ops "
+                  f"{show_breakdown(row[name]['kernel_ops'])}; {name} ops {show_breakdown(row[name]['ops'])}")
+        out[what] = row
+    return out
 
 
 def mesh_on_cards(n_cards: int) -> int:
@@ -856,6 +1008,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the card.")
     ap.add_argument("--nccl-cards", type=int, default=0,
                     help="run only the four-rank mesh leg over NCCL, one card per rank")
+    ap.add_argument("--alt", action="store_true",
+                    help="check K2 and time it against its measured alternative, and stop")
     ap.add_argument("--times-only", metavar="JSON",
                     help="build the kernels and run only the timing phase, writing its record "
                          "to JSON (to compare two trees on one card in one call)")
@@ -877,6 +1031,15 @@ def main() -> int:
     from opentelemetry_demo_tpu_torch.models import DetectorConfig
 
     cfg = DetectorConfig()
+    if args.alt:
+        phase_build()
+        phase_cms_hist(cfg, device, {})
+        phase_wide_cms(device)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "alt.json").write_text(json.dumps({"card": card, "alt": phase_alt(cfg, device)},
+                                                     indent=1, default=str))
+        print(card)
+        return 0
     if args.times_only:
         phase_build()
         results = {name: {} for name in ("fused_update", "cms_hist", "sketch_delta")}
@@ -891,12 +1054,14 @@ def main() -> int:
     phase_cms_hist(cfg, device, results)
     phase_sketch_delta(cfg, device, results)
     phase_detector_vs_cpu(device)
+    phase_wide_cms(device)
     e2e = [
         phase_end_to_end(device, None, 2048, n_warm=40, n_fault=4, bodies_per_batch=1, results=results),
         phase_end_to_end(device, "xla", 65536, n_warm=24, n_fault=3, bodies_per_batch=8, results=results),
     ]
     for leg in e2e:
-        leg["step_device_ms"], leg["step_wall_ms"] = phase_step_time(device, leg["impl"], leg["width"])
+        leg["step_device_ms"], leg["step_wall_ms"], leg["step_ops"] = phase_step_time(
+            device, leg["impl"], leg["width"])
         leg["device_busy_share"] = (
             None if leg["step_device_ms"] is None
             else leg["step_device_ms"] * leg["batches"] / (leg["wall_s"] * 1e3)
@@ -904,6 +1069,10 @@ def main() -> int:
         print(f"step B={leg['width']} impl={leg['impl']}: device {leg['step_device_ms']} ms, "
               f"wall {leg['step_wall_ms']:.4f} ms; device busy share of the e2e run "
               f"{leg['device_busy_share']}")
+        ops = sorted(leg["step_ops"].items(), key=lambda kv: -kv[1]["ms"])
+        print(f"  device operations per step (B={leg['width']} impl={leg['impl']}, "
+              f"{sum(v['per_call'] for _, v in ops):g} in all, {sum(v['ms'] for _, v in ops):.5f} ms): "
+              f"{show_breakdown(dict(ops))}")
     mesh = phase_mesh_one_rank(cfg, device)
     mesh.update(phase_mesh_four_ranks(cfg, device, results))
     phase_times(cfg, device, results)

@@ -1,59 +1,312 @@
-// cms_hist: exact unit-weight histogram of int32 keys, for the CMS count
-// of the composed ("xla") sketch path.
+// cms_hist: the CMS count of a span batch, an exact unit-weight
+// histogram, in one cooperative launch that clears its own output.
 //
 // Replaces: opentelemetry_demo_tpu/ops/cms.py::_hist_mxu_kernel (the
-// Pallas kernel launched by _hist_mxu), which builds int8 one-hots of
-// the keys' (hi, lo) bytes and contracts them on the TPU's matrix unit.
+// Pallas kernel launched by _hist_mxu), which splits each flat key into
+// (hi, lo) bytes, builds int8 one-hots of both and contracts them on the
+// TPU's matrix unit, because TPU scatters serialise on duplicate keys.
 //
-// What it computes: counts[b] = #{i : keys[i] == b} for b in [0, n_bins).
-// Keys equal to n_bins (the invalid-lane sentinel) and any other key
-// outside [0, n_bins) are not counted.
+// What it computes, for keys idx[D, B] (row d's keys at idx + d*B):
+//   out[d, k] = #{i : valid[i] and idx[d, i] == k}   for k in [0, W),
+// with keys outside [0, W) not counted and every lane valid when `valid`
+// is null. ops/cms.py runs it two ways:
+//   cms_count(idx[D, B], valid, W)  the batch's CMS count, the quantity
+//                                   cms_update_hist adds to the table;
+//   cms_hist(flat, n_bins)          one row of n_bins bins and no mask,
+//                                   the counterpart of _hist_mxu (its
+//                                   invalid-lane sentinel n_bins falls
+//                                   out as out of range).
 //
-// Bound on the H100: bytes. Each key is read once (4 B) and each count
-// written once (4 B); at the main path's shapes (262,144 keys, 32,768
-// bins) that is 1.2 MB, about 0.4 us at 3.35 TB/s, so in practice the
-// launch and the per-block zero/flush of the shared histogram set the
-// time.
+// Bound on the H100: bytes. Each lane's D indices and its valid byte (or
+// each flat key) are read once and the D*W counts written once: at the
+// composed path's shapes (B = 65536, D = 4, W = 8192) 1,114,112 + 131,072
+// bytes, 0.37 us at 3.35 TB/s; 262,144 flat keys into 32,768 bins
+// 1,179,648 bytes, 0.35 us. The launch and a few dependent memory round
+// trips (lanes, grid barrier, atomics) are what the time is made of.
 //
-// Design: one shared-memory histogram of n_bins int32 counters per block
-// (128 KiB at 4 x 8192, above the 48 KiB default, so the launcher opts in
-// with cudaFuncSetAttribute). Keys are counted with shared-memory
-// atomicAdd; each block then adds its non-zero counters into the global
-// counts with one atomicAdd each. Integer adds are exact in any order, so
-// the result is bit-exact whatever the schedule. The TPU's geometry rules
-// (key count a multiple of 8192, bins a multiple of 256) do not apply.
+// Design, against what the first version of this kernel paid for:
+//   - One device operation per call. The output is cleared by the launch
+//     itself: every block clears a share (16 bytes a thread a pass), the
+//     grid meets at cooperative_groups' grid.sync(), and only then does
+//     any atomic land. The launch is cooperative (every block resident at
+//     once, or it is refused and the wrapper raises), with at most one
+//     block per SM.
+//   - The keys are built in registers. A thread reads its lane's valid
+//     byte and D row indices (row d of a warp's lanes is one coalesced
+//     128-byte read) and counts row·W + index, skipping invalid lanes:
+//     no arange, add, where or reshape runs before the launch.
+//   - The grid follows the card. ops/_kernels.py::hist_plan gives each
+//     block a run of whole 32-lane slices, as many blocks as the lanes
+//     (or the clear, at 2,048 ints a block) need up to one per SM, and
+//     512 threads a block; blocks past the lanes only share the clear.
+//   - No private histogram, so no ceiling on the bins. Counts go straight
+//     into the output with global atomics, so a block's cost follows its
+//     keys, not the bin count: nothing to zero or scan per block, and
+//     any D*W an int32 index addresses is counted.
+//   - Hot keys are merged in the warp (warp_merge.cuh): lanes on one
+//     counter send one atomicAdd of their number. Integer adds are exact
+//     in any order, so two launches give the same bits.
+//   - Each thread's first lane is loaded before the barrier, so the
+//     loads overlap the clear, and each next lane before the current
+//     lane's atomics (a load after an atomic would wait for it).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "warp_merge.cuh"
 
 namespace {
 
-__global__ void cms_hist_kernel(const int* __restrict__ keys, long long n,
-                                int n_bins, int* __restrict__ counts) {
-  extern __shared__ int hist[];
-  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) hist[i] = 0;
-  __syncthreads();
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 512;
+constexpr int kMaxRows = 8;  // rows a lane keeps in registers
+constexpr unsigned kFull = 0xffffffffu;
+
+struct HistArgs {
+  const int* idx;              // [D, B]
+  const unsigned char* valid;  // [B], or null: every lane valid
+  long long B;
+  int D;
+  int W;  // bins per row
+  int lanes_per_block;
+  int* out;  // [D, W], cleared by the launch
+};
+
+struct LaneKeys {
+  bool on;  // in the batch and valid
+  int keys[kMaxRows];
+};
+
+__device__ __forceinline__ LaneKeys load_lane(const HistArgs& a, long long i, bool in) {
+  LaneKeys l;
+  l.on = in && (a.valid == nullptr || a.valid[i]);
+#pragma unroll
+  for (int d = 0; d < kMaxRows; ++d) {
+    l.keys[d] = (in && d < a.D) ? a.idx[(long long)d * a.B + i] : -1;
+  }
+  return l;
+}
+
+// One 32-lane slice of a warp into the output: per row, lanes with the
+// same in-range key send one atomicAdd of their number.
+__device__ __forceinline__ void count_lane(const HistArgs& a, const LaneKeys& l, int lane) {
+#pragma unroll
+  for (int d = 0; d < kMaxRows; ++d) {
+    if (d >= a.D) break;
+    const int key = l.keys[d];
+    const bool ok = l.on && (unsigned)key < (unsigned)a.W;
+    const unsigned mask = __ballot_sync(kFull, ok);
+    if (ok) {
+      const int c = merged_count(mask, key, lane);
+      if (c) atomicAdd(a.out + (long long)d * a.W + key, c);
+    }
+  }
+}
+
+__device__ __forceinline__ void clear_output(const HistArgs& a) {
+  const long long n = (long long)a.D * a.W;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int k = keys[i];
-    if ((unsigned)k < (unsigned)n_bins) atomicAdd(&hist[k], 1);
+  int4* out4 = reinterpret_cast<int4*>(a.out);  // the wrapper's fresh tensor: 16-byte aligned
+  for (long long i = t; i < n / 4; i += stride) out4[i] = make_int4(0, 0, 0, 0);
+  for (long long i = n / 4 * 4 + t; i < n; i += stride) a.out[i] = 0;
+}
+
+__global__ void __launch_bounds__(kThreads) cms_hist_kernel(HistArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
+  const long long b1 = min(a.B, b0 + a.lanes_per_block);
+  const long long first = b0 + (threadIdx.x & ~31);
+  LaneKeys next = load_lane(a, first + lane, first + lane < b1);
+  clear_output(a);
+  cg::this_grid().sync();
+  for (long long base = first; base < b1; base += blockDim.x) {
+    const LaneKeys l = next;
+    const long long nb = base + blockDim.x;
+    if (nb < b1) next = load_lane(a, nb + lane, nb + lane < b1);
+    count_lane(a, l, lane);
+  }
+}
+
+// A design step, measured: the warp leaders' counts merged once more
+// across the block's warps in a small shared-memory table (a slot per
+// flat counter, claimed by the first counter that hashes there; a counter
+// that finds its slot taken goes straight to the output), flushed with
+// one atomic per claimed slot after the block's lanes.
+constexpr int kSlotBits = 11;
+constexpr int kSlots = 1 << kSlotBits;
+constexpr int kEmpty = -1;
+
+__global__ void __launch_bounds__(kThreads) cms_hist_cached_kernel(HistArgs a) {
+  __shared__ int tag[kSlots];
+  __shared__ int cnt[kSlots];
+  const int lane = threadIdx.x & 31;
+  const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
+  const long long b1 = min(a.B, b0 + a.lanes_per_block);
+  const long long first = b0 + (threadIdx.x & ~31);
+  LaneKeys next = load_lane(a, first + lane, first + lane < b1);
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
+    tag[i] = kEmpty;
+    cnt[i] = 0;
+  }
+  clear_output(a);
+  cg::this_grid().sync();
+  if (b0 >= b1) return;
+  for (long long base = first; base < b1; base += blockDim.x) {
+    const LaneKeys l = next;
+    const long long nb = base + blockDim.x;
+    if (nb < b1) next = load_lane(a, nb + lane, nb + lane < b1);
+#pragma unroll
+    for (int d = 0; d < kMaxRows; ++d) {
+      if (d >= a.D) break;
+      const int key = l.keys[d];
+      const bool ok = l.on && (unsigned)key < (unsigned)a.W;
+      const unsigned mask = __ballot_sync(kFull, ok);
+      if (ok) {
+        const int c = merged_count(mask, key, lane);
+        if (c) {
+          const int f = d * a.W + key;
+          const int s = (int)(((unsigned)f * 2654435761u) >> (32 - kSlotBits));
+          int t = ((volatile int*)tag)[s];
+          if (t == kEmpty) {
+            t = atomicCAS(&tag[s], kEmpty, f);
+            if (t == kEmpty) t = f;
+          }
+          if (t == f) {
+            atomicAdd(&cnt[s], c);
+          } else {
+            atomicAdd(a.out + f, c);
+          }
+        }
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) {
-    const int c = hist[i];
-    if (c) atomicAdd(&counts[i], c);
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
+    const int c = cnt[i];
+    if (c) atomicAdd(a.out + tag[i], c);
+  }
+}
+
+// The measured alternative: a thread-block cluster holds the bins in
+// distributed shared memory, a tile of them in each block, in passes of
+// kCluster tiles; lanes send warp-merged atomics into the owning block's
+// tile, and each block flushes its tile's non-zero counts into the output
+// with global atomics after a cluster barrier.
+constexpr int kCluster = 8;
+constexpr int kMaxTile = 48 * 1024;  // ints: 192 KB of shared memory
+
+__global__ void __launch_bounds__(kThreads) cms_hist_cluster_kernel(HistArgs a, int tile, int coop) {
+  extern __shared__ int tile_hist[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
+  const long long b1 = min(a.B, b0 + a.lanes_per_block);
+  const long long first = b0 + (threadIdx.x & ~31);
+  if (coop) {
+    clear_output(a);
+    cg::this_grid().sync();
+  }
+  const long long n_out = (long long)a.D * a.W;
+  const long long span = (long long)kCluster * tile;
+  for (long long p0 = 0; p0 < n_out; p0 += span) {
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) tile_hist[i] = 0;
+    cluster.sync();
+    for (long long base = first; base < b1; base += blockDim.x) {
+      const LaneKeys l = load_lane(a, base + lane, base + lane < b1);
+#pragma unroll
+      for (int d = 0; d < kMaxRows; ++d) {
+        if (d >= a.D) break;
+        const int key = l.keys[d];
+        const long long rel = (long long)d * a.W + key - p0;
+        const bool ok = l.on && (unsigned)key < (unsigned)a.W && rel >= 0 && rel < span;
+        const unsigned mask = __ballot_sync(kFull, ok);
+        if (ok) {
+          const int c = merged_count(mask, (int)rel, lane);
+          if (c) {
+            int* h = cluster.map_shared_rank(tile_hist, (unsigned)(rel / tile));
+            atomicAdd(h + rel % tile, c);
+          }
+        }
+      }
+    }
+    cluster.sync();
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      const long long o = p0 + (long long)rank * tile + i;
+      const int c = tile_hist[i];
+      if (o < n_out && c) atomicAdd(a.out + o, c);
+    }
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-extern "C" int cms_hist_launch(const void* keys, long long n, int n_bins,
-                               void* counts, int n_blocks, void* stream) {
-  const size_t smem = (size_t)n_bins * sizeof(int);
+extern "C" int cms_hist_launch(const void* idx, const void* valid, long long B, int D, int W,
+                               void* out, int grid, int threads, int lanes_per_block,
+                               void* stream) {
+  HistArgs a = {(const int*)idx, (const unsigned char*)valid, B, D, W, lanes_per_block,
+                (int*)out};
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)cms_hist_kernel, dim3(grid),
+                                          dim3(threads), args, 0, (cudaStream_t)stream);
+}
+
+extern "C" int cms_hist_cached_launch(const void* idx, const void* valid, long long B, int D,
+                                      int W, void* out, int grid, int threads,
+                                      int lanes_per_block, void* stream) {
+  HistArgs a = {(const int*)idx, (const unsigned char*)valid, B, D, W, lanes_per_block,
+                (int*)out};
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)cms_hist_cached_kernel, dim3(grid),
+                                          dim3(threads), args, 0, (cudaStream_t)stream);
+}
+
+// The alternative's launch: as many clusters as fit at once (at most 16),
+// the lanes cut evenly over their blocks. With coop = 0 the output is
+// cleared by a memset before a plain cluster launch. Returns the error.
+extern "C" int cms_hist_cluster_launch(const void* idx, const void* valid, long long B, int D,
+                                       int W, void* out, int coop, void* stream) {
+  const long long n_out = (long long)D * W;
+  const long long per_block = (n_out + kCluster - 1) / kCluster;
+  const int tile = (int)(per_block < kMaxTile ? per_block : kMaxTile);
+  const size_t smem = (size_t)tile * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      cms_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cms_hist_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cms_hist_kernel<<<n_blocks, 512, smem, (cudaStream_t)stream>>>(
-      (const int*)keys, n, n_bins, (int*)counts);
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kCluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = coop;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(16 * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)cms_hist_cluster_kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  cfg.numAttrs = 2;
+  clusters = clusters < 16 ? clusters : 16;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = clusters * kCluster;
+  cfg.gridDim = dim3(grid);
+  const long long per = (B + grid - 1) / grid;
+  const long long rounded = (per + 31) / 32 * 32;
+  const int lanes = (int)(rounded > 32 ? rounded : 32);
+  HistArgs a = {(const int*)idx, (const unsigned char*)valid, B, D, W, lanes, (int*)out};
+  if (!coop) {
+    err = cudaMemsetAsync(out, 0, (size_t)n_out * sizeof(int), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaLaunchKernelEx(&cfg, cms_hist_cluster_kernel, a, tile, coop);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -81,6 +81,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "warp_merge.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -301,10 +303,9 @@ __device__ __forceinline__ void warp_banks(const SketchArgs& a, const Lane& l, i
     for (int d = 0; d < kMaxDepth; ++d) {
       if (d >= a.D) break;
       const int key = l.keys[d];
-      const unsigned g = __match_any_sync(v_mask, key);
-      if (lane == __ffs(g) - 1) {
+      const int c = merged_count(v_mask, key, lane);
+      if (c) {
         int* dst = a.cms + (long long)d * a.Wc + key;
-        const int c = __popc(g);
         for (int w = 0; w < a.n_windows; ++w) atomicAdd(dst + w * a.cms_ws, c);
       }
     }

@@ -9,6 +9,8 @@ from .hll import HLL_P, hll_estimate, hll_indices, hll_init, hll_merge, hll_upda
 from .cms import (
     CMS_DEPTH,
     CMS_WIDTH,
+    cms_count,
+    cms_hist,
     cms_indices,
     cms_init,
     cms_merge,
@@ -48,6 +50,8 @@ __all__ = [
     "cms_indices",
     "cms_update",
     "cms_update_hist",
+    "cms_count",
+    "cms_hist",
     "cms_query",
     "cms_merge",
     "ewma_init",

@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -59,7 +60,12 @@ _ARGTYPES = {
         _F, _F, _F, _F, _F,  # warmup z_warmup cusum_k cusum_cap err_slack
         _P,  # stream
     ],
-    "cms_hist": [_P, _L, _I, _P, _I, _P],  # keys n n_bins counts n_blocks stream
+    "cms_hist": [
+        _P, _P, _L, _I, _I,  # idx valid B D W
+        _P,  # out
+        _I, _I, _I,  # grid threads lanes_per_block
+        _P,  # stream
+    ],
     "sketch_delta": [
         _P, _P, _P, _P, _P, _P, _P,  # svc log_lat is_error hi lo cidx valid
         _I, _I, _I, _I, _I,  # B S p D Wc
@@ -177,20 +183,78 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch_cms_hist(keys: torch.Tensor, n_bins: int, counts: torch.Tensor) -> None:
-    """counts[n_bins] += histogram of ``keys`` (int32, contiguous, CUDA)."""
-    smem = n_bins * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"cms_hist keeps {n_bins} bins in shared memory ({smem} B); "
-            f"an H100 block has at most {SMEM_LIMIT} B"
-        )
-    n = keys.numel()
-    n_blocks = max(1, min(132, -(-n // 16384)))
+class HistPlan(NamedTuple):
+    """How the ``cms_hist`` kernel is launched for one call."""
+
+    grid: int  # blocks, at most one per SM
+    threads: int  # threads per block
+    lanes_per_block: int  # each block's run of lanes; blocks past the lanes only clear
+
+
+# Threads per block of the histogram kernel (its __launch_bounds__), and
+# the output ints a block clears in one pass (an int4 a thread).
+HIST_THREADS = 512
+_HIST_CLEAR_PER_BLOCK = 4 * HIST_THREADS
+
+
+def hist_plan(n_lanes: int, n_out: int, n_sms: int = N_SMS) -> HistPlan:
+    """The ``cms_hist`` launch for ``n_lanes`` lanes and ``n_out`` output
+    counts on a card of ``n_sms`` SMs: each block a run of whole 32-lane
+    slices, about ``n_lanes / n_sms`` lanes, and as many blocks as the
+    lanes or the clear (2,048 ints a block a pass) need, at most one per
+    SM (the launch is cooperative). The bin count sets no limit: a block
+    keeps no histogram of its own, so ``n_out`` only sizes the clear."""
+    per_sm = -(-n_lanes // n_sms)
+    lanes = max(32, -(-per_sm // 32) * 32)
+    need = max(-(-n_lanes // lanes), -(-n_out // _HIST_CLEAR_PER_BLOCK), 1)
+    return HistPlan(min(n_sms, need), HIST_THREADS, lanes)
+
+
+def launch_cms_hist(
+    idx: torch.Tensor, valid: torch.Tensor | None, width: int, out: torch.Tensor
+) -> None:
+    """Launch the histogram kernel on the current stream: it clears
+    ``out[D, width]`` and counts ``idx[D, B]`` (int32, contiguous, CUDA)
+    into it, lanes whose ``valid`` is False (when given) and keys outside
+    ``[0, width)`` skipped. Tensors are validated by the caller
+    (ops.cms)."""
+    d, b = idx.shape
+    plan = hist_plan(b, d * width, sm_count(idx.device.index))
     fn = _lib("cms_hist").cms_hist_launch
-    rc = fn(_ptr(keys), n, n_bins, _ptr(counts), n_blocks, _stream(keys.device))
+    rc = fn(
+        _ptr(idx), _ptr(valid), b, d, width, _ptr(out), *plan, _stream(idx.device),
+    )
     _check("cms_hist", rc)
     LAUNCHES["cms_hist"] += 1
+
+
+def launch_cms_hist_cached(
+    idx: torch.Tensor, valid: torch.Tensor | None, width: int, out: torch.Tensor
+) -> None:
+    """A measured design step of the histogram kernel (the warps' counts
+    merged in a shared-memory table per block); not counted in
+    ``LAUNCHES``."""
+    d, b = idx.shape
+    plan = hist_plan(b, d * width, sm_count(idx.device.index))
+    fn = _lib("cms_hist").cms_hist_cached_launch
+    fn.argtypes = _ARGTYPES["cms_hist"]
+    fn.restype = ctypes.c_int
+    rc = fn(_ptr(idx), _ptr(valid), b, d, width, _ptr(out), *plan, _stream(idx.device))
+    _check("cms_hist_cached", rc)
+
+
+def launch_cms_hist_cluster(
+    idx: torch.Tensor, valid: torch.Tensor | None, width: int, out: torch.Tensor, coop: bool
+) -> None:
+    """The measured alternative of the histogram kernel (a thread-block
+    cluster holding the bins in distributed shared memory); not counted
+    in ``LAUNCHES``."""
+    d, b = idx.shape
+    fn = _lib("cms_hist").cms_hist_cluster_launch
+    fn.argtypes = [_P, _P, _L, _I, _I, _P, _I, _P]
+    fn.restype = ctypes.c_int
+    rc = fn(_ptr(idx), _ptr(valid), b, d, width, _ptr(out), int(coop), _stream(idx.device))
+    _check("cms_hist_cluster", rc)
 
 
 @functools.cache

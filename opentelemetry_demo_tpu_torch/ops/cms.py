@@ -5,10 +5,12 @@ hashes use the Kirsch–Mitzenmacher construction ``g_i = lo + i·hi``
 (mod 2³²) from one 64-bit key hash. Update is a scatter-add, merge an
 elementwise add, query a min over the D rows.
 
-:func:`cms_hist` is the CMS count of the composed sketch path: on a CUDA
-tensor it launches the hand-written histogram kernel
-(``csrc/cms_hist.cu``); on a CPU tensor it runs :func:`cms_hist_plain`,
-the sort/searchsorted count of the reference's ``"sort"`` engine.
+:func:`cms_count` is the CMS count of the composed sketch path, and
+:func:`cms_hist` the flat histogram the reference's MXU engine computes.
+On a CUDA tensor both launch the hand-written histogram kernel
+(``csrc/cms_hist.cu``, one launch that clears its own output); on a CPU
+tensor they run :func:`cms_count_plain` and :func:`cms_hist_plain`, the
+sort/searchsorted count of the reference's ``"sort"`` engine.
 """
 
 from __future__ import annotations
@@ -87,35 +89,85 @@ def cms_hist_plain(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
     return (cuts[1:] - cuts[:-1]).to(torch.int32)
 
 
-def cms_hist(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """Exact histogram of int32 keys in ``[0, n_bins]`` → ``int32[n_bins]``.
+# CMS rows a lane of the histogram kernel keeps in registers.
+_HIST_MAX_ROWS = 8
 
-    CUDA tensor: the ``cms_hist`` kernel. CPU tensor:
-    :func:`cms_hist_plain`. Anything else raises."""
+
+def cms_count_plain(
+    idx: torch.Tensor, valid: torch.Tensor | None, width: int
+) -> torch.Tensor:
+    """Plain version of :func:`cms_count`, built on :func:`cms_hist_plain`:
+    lane ``i`` of row ``d`` takes the flat key ``d·width + idx[d, i]``, or
+    the sentinel ``D·width`` when it is invalid or its index lies outside
+    ``[0, width)``."""
+    d = idx.shape[0]
+    idx = idx.to(torch.int64)
+    ok = (idx >= 0) & (idx < width)
+    if valid is not None:
+        ok = ok & valid[None, :]
+    rows = torch.arange(d, dtype=torch.int64, device=idx.device)[:, None] * width
+    flat = torch.where(ok, idx + rows, d * width)
+    return cms_hist_plain(flat.reshape(-1), d * width).view(d, width)
+
+
+def _launch_hist(name, idx, valid, width) -> torch.Tensor:
+    """Validate, allocate the output (the kernel clears it) and launch."""
+    if idx.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for device {idx.device}")
+    if idx.dtype != torch.int32 or idx.dim() != 2:
+        raise ValueError(f"{name} takes int32 keys [D, B]")
+    d, b = idx.shape
+    if d > _HIST_MAX_ROWS:
+        raise ValueError(f"{name} keeps at most {_HIST_MAX_ROWS} rows a lane in registers")
+    if valid is not None and (
+        valid.device != idx.device or valid.dtype != torch.bool or valid.shape != (b,)
+    ):
+        raise ValueError(f"{name}: valid must be a bool [B] beside the keys")
+    if width < 1 or d * width >= 1 << 31:
+        raise ValueError(f"{name}: {d} x {width} bins do not fit int32 keys")
+    out = torch.empty((d, width), dtype=torch.int32, device=idx.device)
+    _kernels.launch_cms_hist(
+        idx.contiguous(), None if valid is None else valid.contiguous(), width, out
+    )
+    return out
+
+
+def cms_count(
+    idx: torch.Tensor, valid: torch.Tensor | None, width: int
+) -> torch.Tensor:
+    """One batch's CMS count ``int32[D, width]``: for each row ``d``, the
+    number of lanes with ``idx[d, i] == k``, invalid lanes (``valid``
+    False) and indices outside ``[0, width)`` not counted; ``valid=None``
+    counts every lane.
+
+    CUDA tensor: the ``cms_hist`` kernel over ``idx[D, B]`` (int32,
+    D <= 8), one launch. CPU tensor: :func:`cms_count_plain`.
+    Anything else raises."""
+    if idx.device.type == "cpu":
+        return cms_count_plain(idx, valid, width)
+    return _launch_hist("cms_count", idx, valid, width)
+
+
+def cms_hist(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Exact histogram of int32 keys → ``int32[n_bins]``; keys outside
+    ``[0, n_bins)`` (the sentinel ``n_bins`` among them) are not counted.
+
+    CUDA tensor: the ``cms_hist`` kernel as one row with no mask. CPU
+    tensor: :func:`cms_hist_plain`. Anything else raises."""
     if flat.device.type == "cpu":
         return cms_hist_plain(flat, n_bins)
-    if flat.device.type != "cuda":
-        raise ValueError(f"cms_hist has no kernel for device {flat.device}")
-    if flat.dtype != torch.int32 or flat.dim() != 1:
+    if flat.dim() != 1:
         raise ValueError("cms_hist takes a 1-D int32 key tensor")
-    counts = torch.zeros(n_bins, dtype=torch.int32, device=flat.device)
-    _kernels.launch_cms_hist(flat.contiguous(), n_bins, counts)
-    return counts
+    return _launch_hist("cms_hist", flat.view(1, -1), None, n_bins).view(n_bins)
 
 
 def cms_update_hist(
     table: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Unit-weight batch count of a 2-D ``table[D, W]``: identical to
-    :func:`cms_update` with ``weight=None``, computed as a histogram.
-    Invalid lanes take the key ``D·W``, one past the counted range."""
-    d, w = table.shape
-    row_offset = torch.arange(d, dtype=torch.int32, device=table.device)[:, None] * w
-    flat_idx = idx.to(torch.int32) + row_offset
-    if valid is not None:
-        flat_idx = torch.where(valid[None, :], flat_idx, d * w)
-    counts = cms_hist(flat_idx.reshape(-1), d * w)
-    return table + counts.reshape(d, w).to(table.dtype)
+    :func:`cms_update` with ``weight=None``, computed as a histogram
+    (:func:`cms_count`)."""
+    return table + cms_count(idx, valid, table.shape[1]).to(table.dtype)
 
 
 def cms_query(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ and, given ``heads``, advances the heads too. Its impls:
   ``atomicMax`` and CMS ``atomicAdd`` into every bank, fixed-order stats,
   the head epilogue in block 0); on a CPU tensor its plain version.
 - ``"xla"``: the composed path — :func:`sketch_batch_delta` (scatter-max
-  HLL, the CMS count through :func:`cms.cms_hist`, matmul segment
+  HLL, the CMS count through :func:`cms.cms_count`, matmul segment
   stats), merged into the banks, then :func:`head_update`.
 - ``"interpret"``: :func:`fused_update_plain`, the plain PyTorch version
   of the kernel, on any device.
@@ -209,12 +209,7 @@ def sketch_batch_delta(
         rank,
         valid,
     )
-    d = cidx.shape[0]
-    cms_d = cms.cms_update_hist(
-        torch.zeros((d, cms_width), dtype=torch.int32, device=svc.device),
-        cidx,
-        valid,
-    )
+    cms_d = cms.cms_count(cidx, valid, cms_width)
     cnt, lat_sum, lat_sumsq = ewma.segment_stats(log_lat, svc, s, valid=valid)
     _, err_sum, _ = ewma.segment_stats(is_error, svc, s, valid=valid)
     stats = torch.stack([cnt, lat_sum, lat_sumsq, err_sum], dim=0)

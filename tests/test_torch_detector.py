@@ -113,6 +113,21 @@ def test_twenty_chained_steps_match_reference(rng, impl):
     assert (final.hll_bank[:, 1] > 0).any(), "no window rotated in 20 steps"
 
 
+@pytest.mark.parametrize("cms_width", [16384, 32768])
+def test_wide_cms_steps_match_reference(rng, cms_width):
+    """The composed path at 65,536 and 131,072 CMS bins (D = 4), which
+    the reference counts and its daemon takes from ``ANOMALY_CMS_WIDTH``:
+    the port's CMS count equals the reference's."""
+    jcfg, tcfg = _configs(**dict(SMALL, cms_width=cms_width), sketch_impl=None)
+    tcfg = tcfg._replace(sketch_impl="xla")
+    ref = jdet.AnomalyDetector(jcfg)
+    got = tdet.AnomalyDetector(tcfg, device="cpu")
+    for step, batch in enumerate(_stream(rng, 3)):
+        t = 20.0 + step * DT
+        _assert_report(ref.observe(batch, t), got.observe(batch, t), step)
+        _assert_state(_state_np(ref.state), tdet.state_to_numpy(got.state), step)
+
+
 def test_chained_steps_match_reference_pallas_interpret(rng):
     """The reference's own fused Pallas kernel (interpret mode) against
     the port's kernel wrapper on the CPU."""
@@ -337,3 +352,22 @@ def test_detector_on_the_card_matches_the_cpu(rng, cuda_device, impl, kernel):
         _assert_report(c, tdet.DetectorReport(*(x.cpu() for x in g)), step)
     assert _kernels.LAUNCHES[kernel] >= before + 12
     _assert_state(tdet.state_to_numpy(cpu.state), tdet.state_to_numpy(card.state), 12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cms_width", [16384, 32768])
+def test_wide_cms_on_the_card_matches_the_cpu(rng, cuda_device, cms_width):
+    """``sketch_impl="xla"`` at 65,536 and 131,072 CMS bins on the card,
+    where the histogram kernel once raised past 58,112 bins (it kept
+    every bin in shared memory): each step equals the CPU's."""
+    cfg = tdet.DetectorConfig(**dict(SMALL, cms_width=cms_width), sketch_impl="xla")
+    card = tdet.AnomalyDetector(cfg)
+    cpu = tdet.AnomalyDetector(cfg, device="cpu")
+    before = _kernels.LAUNCHES["cms_hist"]
+    for step, batch in enumerate(_stream(rng, 3)):
+        g = card.observe(batch, step * DT)
+        c = cpu.observe(batch, step * DT)
+        torch.cuda.synchronize()
+        _assert_report(c, tdet.DetectorReport(*(x.cpu() for x in g)), step)
+        _assert_state(tdet.state_to_numpy(cpu.state), tdet.state_to_numpy(card.state), step)
+    assert _kernels.LAUNCHES["cms_hist"] == before + 3

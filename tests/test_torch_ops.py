@@ -209,7 +209,9 @@ def test_cms_update_query_merge_equal_reference(rng):
     )
 
 
-@pytest.mark.parametrize("d,w,b", [(4, 512, 512), (2, 1024, 128), (4, 512, 3)])
+@pytest.mark.parametrize(
+    "d,w,b", [(4, 512, 512), (2, 1024, 128), (4, 512, 3), (4, 16384, 2048), (4, 32768, 3001)]
+)
 def test_cms_update_hist_equal_reference_sort_engine(rng, d, w, b):
     table = rng.integers(0, 100, size=(d, w)).astype(np.int32)
     idx = rng.integers(0, w, size=(d, b)).astype(np.int32)
@@ -222,6 +224,112 @@ def test_cms_update_hist_equal_reference_sort_engine(rng, d, w, b):
 def test_cms_hist_plain_skips_sentinel_and_out_of_range():
     keys = torch.tensor([0, 0, 3, 4, 4, 4, -1, 5], dtype=torch.int32)
     np.testing.assert_array_equal(cms.cms_hist_plain(keys, 4).numpy(), [2, 0, 0, 1])
+
+
+def _hist_keys(rng, dist, d, w, b):
+    """CMS row indices ``int32[D, B]`` and a validity mask: ``uniform``
+    over the row, or ``zipf`` (the smoke's Zipf(1.3) attribute draw,
+    hashed, so a quarter of the lanes share one counter per row)."""
+    if dist == "uniform":
+        idx = rng.integers(0, w, size=(d, b)).astype(np.int32)
+    else:
+        hi, lo = jhashing.split_hi_lo_np(jhashing.splitmix64_np(rng.zipf(1.3, b).astype(np.uint64)))
+        idx = jcms.cms_indices_np(hi, lo, d, w)
+    return idx, rng.random(b) < 0.85
+
+
+def _pallas_hist(flat: np.ndarray, n_bins: int) -> np.ndarray:
+    """The reference's TPU kernel ``_hist_mxu_kernel`` through
+    ``pl.pallas_call(..., interpret=True)``, with ``_hist_mxu``'s grid,
+    block specs and sentinel fold (keys past the last bin are clamped
+    onto it and their number taken off after)."""
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    n = flat.shape[0]
+    keys = jnp.asarray(flat)
+    sentinels = jnp.sum((keys >= n_bins).astype(jnp.int32))
+    keys = jnp.minimum(keys, n_bins - 1)
+    tile = jcms._HIST_TILE
+    counts = pl.pallas_call(
+        jcms._hist_mxu_kernel,
+        grid=(n // tile,),
+        out_shape=jax.ShapeDtypeStruct((n_bins // 256, 256), jnp.int32),
+        in_specs=[pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((n_bins // 256, 256), lambda i: (0, 0), memory_space=pltpu.VMEM),
+        interpret=True,
+    )(keys.reshape(1, n))
+    return np.asarray(counts.reshape(-1).at[n_bins - 1].add(-sentinels))
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+@pytest.mark.parametrize("n_bins", [1024, 65536])
+def test_hist_plain_equals_the_pallas_mxu_kernel(rng, dist, n_bins):
+    """The port's plain histograms against the TPU kernel itself (two
+    grid steps of 8192 keys, so its carried sum is exercised), exactly:
+    four rows of ``n_bins / 4`` counters, invalid lanes on the sentinel
+    ``n_bins``."""
+    d, b = 4, 2 * jcms._HIST_TILE // 4
+    w = n_bins // d
+    idx, valid = _hist_keys(rng, dist, d, w, b)
+    flat = np.where(valid[None, :], idx + (np.arange(d, dtype=np.int32) * w)[:, None], n_bins)
+    flat = flat.reshape(-1).astype(np.int32)
+    want = _pallas_hist(flat, n_bins)
+    assert int(want.sum()) == d * int(valid.sum()) and (flat == n_bins).any()
+    np.testing.assert_array_equal(cms.cms_hist_plain(torch.from_numpy(flat), n_bins).numpy(), want)
+    got = cms.cms_count_plain(torch.from_numpy(idx), torch.from_numpy(valid), w)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(d, w))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cms_count_equals_reference_on_a_zero_table(rng, masked):
+    """``cms_count`` (its plain version on the CPU) is the count the
+    reference's ``cms_update_hist`` adds to the table, with or without a
+    mask."""
+    d, w, b = 4, 2048, 5000
+    idx, valid = _hist_keys(rng, "zipf", d, w, b)
+    jv = jnp.asarray(valid) if masked else None
+    ref = jcms.cms_update_hist(jcms.cms_init(d, w), jnp.asarray(idx), jv, impl="sort")
+    got = cms.cms_count(torch.from_numpy(idx), torch.from_numpy(valid) if masked else None, w)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+def test_cms_count_plain_skips_invalid_lanes_and_out_of_range_indices():
+    idx = torch.tensor([[0, 1, 1, 4, -1], [3, 3, 3, 0, 2]], dtype=torch.int32)
+    valid = torch.tensor([True, True, False, True, True])
+    np.testing.assert_array_equal(
+        cms.cms_count_plain(idx, valid, 4).numpy(), [[1, 1, 0, 0], [1, 0, 1, 2]]
+    )
+    np.testing.assert_array_equal(
+        cms.cms_count_plain(idx, None, 4).numpy(), [[1, 2, 0, 0], [1, 0, 1, 3]]
+    )
+
+
+# Bin counts from one counter to every index an int32 key addresses.
+PLAN_BINS = [1, 1024, 32768, 58112, 58113, 65536, 131072, 1 << 20, (1 << 31) - 1]
+
+
+@pytest.mark.parametrize("n_sms", [114, 132])
+def test_hist_launch_plan_fits_the_card_with_no_bins_ceiling(n_sms):
+    """The histogram kernel's plan, B = 1 … 140001 lanes and any bin count:
+    at most one block per SM (the launch is cooperative), runs of whole
+    warp slices that cover the lanes, enough blocks to spread the lanes
+    and the clear, and no limit on the bins (no block keeps a histogram
+    of its own)."""
+    for b in PLAN_WIDTHS:
+        for n_out in PLAN_BINS:
+            plan = _kernels.hist_plan(b, n_out, n_sms)
+            assert plan == _kernels.hist_plan(b, n_out, n_sms)
+            assert 1 <= plan.grid <= n_sms
+            assert plan.threads == _kernels.HIST_THREADS == 512
+            assert plan.lanes_per_block % 32 == 0 and plan.lanes_per_block >= 32
+            assert plan.grid * plan.lanes_per_block >= b
+            assert plan.grid >= min(-(-b // 32), n_sms // 2), (b, n_out, plan)
+            assert plan.grid >= min(n_sms, -(-n_out // (4 * plan.threads))), (b, n_out, plan)
+    assert _kernels.hist_plan(0, 32768, n_sms).grid == 16
+    assert _kernels.hist_plan(65536, 32768) == _kernels.hist_plan(65536, 32768, _kernels.N_SMS)
 
 
 def test_kernel_wrappers_refuse_devices_without_a_kernel():
@@ -552,6 +660,50 @@ def test_cms_hist_kernel_matches_plain(rng, cuda_device):
     got = cms.cms_hist(keys, n_bins)
     assert _kernels.LAUNCHES["cms_hist"] == before + 1
     assert torch.equal(got.cpu(), cms.cms_hist_plain(keys.cpu(), n_bins))
+
+
+# (case, D, B, W) of the histogram kernel's card cases: the composed
+# path's shape with uniform, Zipf and hot keys; no valid lane; one key;
+# a lane count no block divides; 65,536 and 131,072 bins.
+HIST_CASES = [
+    ("uniform", 4, 65536, 8192), ("zipf", 4, 65536, 8192), ("hot", 4, 65536, 8192),
+    ("invalid", 4, 2048, 8192), ("one", 1, 1, 8192), ("zipf", 4, 3001, 8192),
+    ("zipf", 4, 65536, 16384), ("uniform", 4, 65536, 32768),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,d,b,w", HIST_CASES)
+def test_cms_hist_kernel_cases(rng, cuda_device, case, d, b, w):
+    """Both entries of the histogram kernel twice against their plain
+    versions: ``cms_count`` on ``idx[D, B]`` with a mask, ``cms_hist`` on
+    the same keys flattened with sentinels. Bit-exact, the two launches
+    bit-identical, one launch a call."""
+    idx, valid = _hist_keys(rng, "uniform" if case == "uniform" else "zipf", d, w, b)
+    if case == "hot":
+        idx[:] = (np.arange(d, dtype=np.int32) * 101 + 7)[:, None]
+        valid[:] = True
+    elif case == "invalid":
+        valid[:] = False
+    elif case == "one":
+        valid[:] = True
+    idx_t = torch.from_numpy(idx).to(cuda_device)
+    valid_t = torch.from_numpy(valid).to(cuda_device)
+    rows = torch.arange(d, dtype=torch.int32, device=cuda_device)[:, None] * w
+    flat = torch.where(valid_t[None, :], idx_t + rows, d * w).reshape(-1)
+    before = _kernels.LAUNCHES["cms_hist"]
+    counts = [cms.cms_count(idx_t, valid_t, w) for _ in range(2)]
+    hists = [cms.cms_hist(flat, d * w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["cms_hist"] == before + 4
+    want = cms.cms_count_plain(idx_t, valid_t, w)
+    assert torch.equal(counts[0], want) and torch.equal(counts[1], want)
+    want_flat = cms.cms_hist_plain(flat, d * w)
+    assert torch.equal(hists[0], want_flat) and torch.equal(hists[1], want_flat)
+    assert torch.equal(want_flat.view(d, w), want)
+    assert int(want.sum()) == d * int(valid.sum())
+    if case == "hot":
+        assert int(want.max()) == b
 
 
 def _edge_batch(rng, case, b, s, d, w, p):
