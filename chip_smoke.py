@@ -4,8 +4,9 @@
     python3 chip_smoke.py --nccl-cards 4   # the four-rank mesh leg over NCCL, one card per rank
 
 Builds the hand-written kernels from ``opentelemetry_demo_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main path's shapes,
-checks the detector on the card against the CPU on a small input, then
+holds each against its plain PyTorch version at the main path's shapes
+and on edge cases, checks the detector on the card against the CPU on a
+small input and with 65,536 and 131,072 CMS bins, then
 drives the main path end to end (OTLP protobuf bodies → decode →
 ``SpanTensorizer`` → ``DetectorPipeline`` → reports) at the default
 ``DetectorConfig`` with an injected latency fault, at batch width 2048
@@ -21,8 +22,9 @@ step on one service, and a short ring-merge replay. Integer banks must
 equal the single-device step's, batch replicas must be bit-identical,
 and the fault must flag on the first batch after onset and not before.
 
-It finishes with each kernel's time beside its plain version, a library
-call where one exists, and its memory bound.
+Each leg's detector step is timed and split into its device operations
+(``torch.profiler``). It finishes with each kernel's time beside its
+plain version, a library call where one exists, and its memory bound.
 
 With ``--nccl-cards 4`` it runs only the four-rank mesh leg, each rank
 on its own card over NCCL, against the single-device step: the path that
@@ -402,47 +404,6 @@ def phase_cms_hist(cfg, device, results):
     results["cms_hist"] = {"max_abs_err": 0.0}
 
 
-def phase_wide_cms(device):
-    """A few detector steps with ``sketch_impl="xla"`` at 65,536 and
-    131,072 CMS bins (D = 4) on the card against the CPU: the histogram
-    kernel once raised past 58,112 bins."""
-    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
-    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
-    from opentelemetry_demo_tpu_torch.ops import _kernels
-    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
-
-    for width in (16384, 32768):
-        cfg = DetectorConfig(cms_width=width, sketch_impl="xla")
-        rng = np.random.default_rng(8)
-        tz = SpanTensorizer(cfg.num_services, 2048)
-        card = AnomalyDetector(cfg, device=device)
-        cpu = AnomalyDetector(cfg, device="cpu")
-        before = _kernels.LAUNCHES["cms_hist"]
-        for step in range(3):
-            n = 2000
-            batch = tz.pack_arrays(
-                rng.integers(0, N_SERVICES, n).astype(np.int32), rng.gamma(4.0, 250.0, n).astype(np.float32),
-                rng.integers(0, 2**63, n, dtype=np.uint64), (rng.random(n) < 0.02).astype(np.float32),
-                rng.zipf(1.3, n).astype(np.uint64),
-            )
-            g = card.observe(batch, step * DT_S)
-            c = cpu.observe(batch, step * DT_S)
-            for name, a, p in zip(c._fields, g, c):
-                a = a.cpu()
-                if name == "flags":
-                    check(torch.equal(a, p), f"flags differ at step {step} (cms_width={width})")
-                else:
-                    check(close(a, p), f"{name} differs at step {step} (cms_width={width}): {max_err(a, p)}")
-        got, want = state_to_numpy(card.state), state_to_numpy(cpu.state)
-        for name in got._fields:
-            a, p = getattr(got, name), getattr(want, name)
-            ok = np.array_equal(a, p) if a.dtype.kind != "f" else np.allclose(a, p, rtol=RTOL, atol=ATOL)
-            check(ok, f"state {name} differs (cms_width={width})")
-        check(_kernels.LAUNCHES["cms_hist"] == before + 3, "cms_hist not launched once a step")
-        print(f"detector sketch_impl='xla' cms_width={width} ({cfg.cms_depth * width} bins): "
-              "3 steps on the card == CPU")
-
-
 def check_k3(args, kw, what, nonempty=True) -> float:
     """K3 twice and its plain version once: integers exact, stats within
     RTOL/ATOL, the two launches bit-identical."""
@@ -628,22 +589,35 @@ def phase_mesh_four_ranks(cfg, device, results, backend="gloo", width=65536,
 
 
 def phase_detector_vs_cpu(device):
-    """The detector on the card against the CPU on a small input."""
+    """The detector on the card against the CPU: on a small input with
+    the kernel path and the composed path, then the composed path at the
+    default config with 65,536 and 131,072 CMS bins (D = 4), where the
+    histogram kernel once raised past 58,112 bins."""
     from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.ops import _kernels
     from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
 
     small = dict(num_services=8, hll_p=8, cms_width=512, windows_s=(0.5, 1.0, 2.5),
                  warmup_batches=3.0, z_warmup_batches=5.0, warmup_windows=1.0)
-    for impl in (None, "xla"):
+    cases = [
+        (DetectorConfig(**small, sketch_impl=None), 8, 256, 16),
+        (DetectorConfig(**small, sketch_impl="xla"), 8, 256, 16),
+        (DetectorConfig(cms_width=16384, sketch_impl="xla"), N_SERVICES, 2048, 3),
+        (DetectorConfig(cms_width=32768, sketch_impl="xla"), N_SERVICES, 2048, 3),
+    ]
+    for cfg, n_svc, width, n_steps in cases:
+        what = f"impl={cfg.sketch_impl} cms {cfg.cms_depth} x {cfg.cms_width}"
+        kernel = "fused_update" if cfg.sketch_impl is None else "cms_hist"
         rng = np.random.default_rng(3)
-        tz = SpanTensorizer(8, 256)
-        card = AnomalyDetector(DetectorConfig(**small, sketch_impl=impl), device=device)
-        cpu = AnomalyDetector(DetectorConfig(**small, sketch_impl="xla"), device="cpu")
-        for step in range(16):
-            n = 240
+        tz = SpanTensorizer(cfg.num_services, width)
+        card = AnomalyDetector(cfg, device=device)
+        cpu = AnomalyDetector(cfg._replace(sketch_impl="xla"), device="cpu")
+        before = _kernels.LAUNCHES[kernel]
+        for step in range(n_steps):
+            n = width - 16
             lat = rng.gamma(4.0, 250.0, n).astype(np.float32)
-            svc = rng.integers(0, 8, n).astype(np.int32)
-            if step >= 8:
+            svc = rng.integers(0, n_svc, n).astype(np.int32)
+            if step >= n_steps // 2:
                 lat = np.where(svc == 2, lat * 5, lat).astype(np.float32)
             batch = tz.pack_arrays(svc, lat, rng.integers(0, 300, n, dtype=np.uint64),
                                    (rng.random(n) < 0.05).astype(np.float32),
@@ -655,14 +629,15 @@ def phase_detector_vs_cpu(device):
                 check(bool(torch.isfinite(a.float()).all()), f"{name} not finite")
                 check(a.shape == p.shape, f"{name} shape {tuple(a.shape)}")
                 if name == "flags":
-                    check(torch.equal(a, p), f"flags differ at step {step} (impl={impl})")
+                    check(torch.equal(a, p), f"flags differ at step {step} ({what})")
                 else:
-                    check(close(a, p), f"{name} differs at step {step} (impl={impl}): {max_err(a, p)}")
+                    check(close(a, p), f"{name} differs at step {step} ({what}): {max_err(a, p)}")
         for name, a, p in zip(card.state._fields, card.state, cpu.state):
             a = a.cpu()
             check(torch.equal(a, p) if not a.is_floating_point() else close(a, p),
-                  f"state {name} differs (impl={impl})")
-    print("detector on the card == CPU on a small input (impl None and 'xla')")
+                  f"state {name} differs ({what})")
+        check(_kernels.LAUNCHES[kernel] == before + n_steps, f"{kernel} not launched once a step ({what})")
+        print(f"detector on the card == CPU, {n_steps} steps of {width} lanes ({what})")
 
 
 def make_bodies(rng, n_bodies, spans, slow=None):
@@ -921,17 +896,15 @@ def phase_times(cfg, device, results):
 
 
 def phase_alt(cfg, device) -> dict:
-    """K2 against two measured designs on the same inputs: the
-    alternative (a thread-block cluster holding the bins in distributed
-    shared memory) and a design step (the warps' counts merged again per
-    block in a shared-memory table). Each is checked, then timed in turns
-    (kernel, variant, variant, kernel)."""
+    """K2 against a measured design step on the same inputs (warm keys
+    merged again per block in a shared table), checked, then timed in
+    turns (kernel, variant, variant, kernel)."""
     from opentelemetry_demo_tpu_torch.ops import _kernels, cms
 
     rng = np.random.default_rng(9)
     out = {}
     shapes = []
-    for width in (cfg.cms_width, 16384, 32768):
+    for width in (cfg.cms_width, 32768):
         lanes = batch_lanes(rng, cfg._replace(cms_width=width), 65536, device)
         shapes.append((f"cms_count B=65536 D=4 W={width}", lanes["cidx"], lanes["valid"], width))
         if width == cfg.cms_width:
@@ -943,38 +916,20 @@ def phase_alt(cfg, device) -> dict:
             shapes.append(("B=1 W=8192", lanes["cidx"][:, :1].contiguous(), lanes["valid"][:1], width))
     hot = (torch.arange(4, dtype=torch.int32, device=device)[:, None] * 101 + 7).expand(4, 65536).contiguous()
     shapes.append(("hot keys B=65536 W=8192", hot, torch.ones(65536, dtype=torch.bool, device=device), 8192))
-    coop = True
     for what, idx, valid, width in shapes:
-        def cluster(idx=idx, valid=valid, width=width):
+        def variant(idx=idx, valid=valid, width=width):
             o = torch.empty((idx.shape[0], width), dtype=torch.int32, device=device)
-            _kernels.launch_cms_hist_cluster(idx, valid, width, o, coop)
-            return o
-
-        def cached(idx=idx, valid=valid, width=width):
-            o = torch.empty((idx.shape[0], width), dtype=torch.int32, device=device)
-            _kernels.launch_cms_hist_cached(idx, valid, width, o)
+            _kernels.launch_cms_hist_hot(idx, valid, width, o)
             return o
 
         want = cms.cms_count_plain(idx, valid, width)
-        try:
-            got = cluster()
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            print(f"alt: cooperative cluster launch refused ({e}); a memset clears instead")
-            coop = False
-            got = cluster()
-            torch.cuda.synchronize()
-        check(torch.equal(got, want) and torch.equal(cluster(), want), f"cluster alternative differs ({what})")
-        check(torch.equal(cached(), want) and torch.equal(cached(), want), f"cached step differs ({what})")
+        check(torch.equal(variant(), want) and torch.equal(variant(), want), f"variant differs ({what})")
         kernel = lambda idx=idx, valid=valid, width=width: cms.cms_count(idx, valid, width)  # noqa: E731
-        row = {"coop": coop}
-        for name, fn in (("cluster", cluster), ("cached", cached)):
-            turns = [time_ms(f, 200) for f in (kernel, fn, fn, kernel)]
-            row[name] = dict(turns=turns, kernel_ops=profile_ops(kernel), ops=profile_ops(fn))
-            print(f"alt {what}: kernel {turns[0][0]:.5f} / {turns[3][0]:.5f} ms, {name} "
-                  f"{turns[1][0]:.5f} / {turns[2][0]:.5f} ms; kernel ops "
-                  f"{show_breakdown(row[name]['kernel_ops'])}; {name} ops {show_breakdown(row[name]['ops'])}")
-        out[what] = row
+        turns = [time_ms(f, 200) for f in (kernel, variant, variant, kernel)]
+        out[what] = dict(turns=turns, kernel_ops=profile_ops(kernel), ops=profile_ops(variant))
+        print(f"alt {what}: kernel {turns[0][0]:.5f} / {turns[3][0]:.5f} ms, warm-key table "
+              f"{turns[1][0]:.5f} / {turns[2][0]:.5f} ms; kernel ops {show_breakdown(out[what]['kernel_ops'])}; "
+              f"table ops {show_breakdown(out[what]['ops'])}")
     return out
 
 
@@ -1009,7 +964,7 @@ def main() -> int:
     ap.add_argument("--nccl-cards", type=int, default=0,
                     help="run only the four-rank mesh leg over NCCL, one card per rank")
     ap.add_argument("--alt", action="store_true",
-                    help="check K2 and time it against its measured alternative, and stop")
+                    help="check K2 and time it against a measured design step, and stop")
     ap.add_argument("--times-only", metavar="JSON",
                     help="build the kernels and run only the timing phase, writing its record "
                          "to JSON (to compare two trees on one card in one call)")
@@ -1034,7 +989,6 @@ def main() -> int:
     if args.alt:
         phase_build()
         phase_cms_hist(cfg, device, {})
-        phase_wide_cms(device)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "alt.json").write_text(json.dumps({"card": card, "alt": phase_alt(cfg, device)},
                                                      indent=1, default=str))
@@ -1054,7 +1008,6 @@ def main() -> int:
     phase_cms_hist(cfg, device, results)
     phase_sketch_delta(cfg, device, results)
     phase_detector_vs_cpu(device)
-    phase_wide_cms(device)
     e2e = [
         phase_end_to_end(device, None, 2048, n_warm=40, n_fault=4, bodies_per_batch=1, results=results),
         phase_end_to_end(device, "xla", 65536, n_warm=24, n_fault=3, bodies_per_batch=8, results=results),

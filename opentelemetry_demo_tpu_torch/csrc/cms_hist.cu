@@ -49,6 +49,26 @@
 //   - Each thread's first lane is loaded before the barrier, so the
 //     loads overlap the clear, and each next lane before the current
 //     lane's atomics (a load after an atomic would wait for it).
+//
+// Measured and dropped (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// --alt at commit 1f53449; device ms per call, in turns with this
+// kernel, whose time comes second):
+//   - A thread-block cluster of 8 holding the bins in distributed shared
+//     memory, a tile a block, flushed with global atomics after a cluster
+//     barrier: 0.01258 against 0.00888 (cms_count, B = 65536, 4 x 8192,
+//     Zipf keys), 0.01545 against 0.00944 (262,144 flat keys), 0.01481
+//     against 0.00883 at 4 x 32768, 0.00696 against 0.00420 with no valid
+//     lane. Every cluster zeroes, scans and flushes all the bins, which
+//     costs more than the atomics it saves.
+//   - The warps' counts merged once more per block in a 2,048-slot
+//     shared-memory table: 0.00864 against 0.00888 and 0.00887 against
+//     0.00944 on Zipf keys, but 0.00909 against 0.00782 on uniform keys
+//     and 0.00465 against 0.00421 with no valid lane. A few percent on
+//     skewed keys does not pay for a table every block clears, probes
+//     and flushes.
+// What is left is fixed cost: with no valid lane (the launch, the clear,
+// the loads and the barrier) the kernel takes 0.0030 ms of its 0.0077 on
+// the Zipf batch (torch.profiler, same run).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -129,26 +149,26 @@ __global__ void __launch_bounds__(kThreads) cms_hist_kernel(HistArgs a) {
   }
 }
 
-// A design step, measured: the warp leaders' counts merged once more
-// across the block's warps in a small shared-memory table (a slot per
-// flat counter, claimed by the first counter that hashes there; a counter
-// that finds its slot taken goes straight to the output), flushed with
-// one atomic per claimed slot after the block's lanes.
-constexpr int kSlotBits = 11;
-constexpr int kSlots = 1 << kSlotBits;
-constexpr int kEmpty = -1;
+// A design step, measured: a lane group of two or more (a key that
+// repeats within the warp, so a warm one) is merged once more across the
+// block's warps in a 256-slot shared table, claimed by the first key that
+// hashes to a slot and flushed after the block's lanes; single lanes and
+// keys whose slot is taken go straight to the output.
+constexpr int kHotBits = 8;
+constexpr int kHot = 1 << kHotBits;
+constexpr int kNoKey = -1;
 
-__global__ void __launch_bounds__(kThreads) cms_hist_cached_kernel(HistArgs a) {
-  __shared__ int tag[kSlots];
-  __shared__ int cnt[kSlots];
+__global__ void __launch_bounds__(kThreads) cms_hist_hot_kernel(HistArgs a) {
+  __shared__ int hot_key[kHot];
+  __shared__ int hot_cnt[kHot];
   const int lane = threadIdx.x & 31;
   const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
   const long long b1 = min(a.B, b0 + a.lanes_per_block);
   const long long first = b0 + (threadIdx.x & ~31);
   LaneKeys next = load_lane(a, first + lane, first + lane < b1);
-  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
-    tag[i] = kEmpty;
-    cnt[i] = 0;
+  for (int i = threadIdx.x; i < kHot; i += blockDim.x) {
+    hot_key[i] = kNoKey;
+    hot_cnt[i] = 0;
   }
   clear_output(a);
   cg::this_grid().sync();
@@ -165,16 +185,18 @@ __global__ void __launch_bounds__(kThreads) cms_hist_cached_kernel(HistArgs a) {
       const unsigned mask = __ballot_sync(kFull, ok);
       if (ok) {
         const int c = merged_count(mask, key, lane);
-        if (c) {
-          const int f = d * a.W + key;
-          const int s = (int)(((unsigned)f * 2654435761u) >> (32 - kSlotBits));
-          int t = ((volatile int*)tag)[s];
-          if (t == kEmpty) {
-            t = atomicCAS(&tag[s], kEmpty, f);
-            if (t == kEmpty) t = f;
+        const int f = d * a.W + key;
+        if (c == 1) {
+          atomicAdd(a.out + f, 1);
+        } else if (c > 1) {
+          const int s = (int)(((unsigned)f * 2654435761u) >> (32 - kHotBits));
+          int t = ((volatile int*)hot_key)[s];
+          if (t == kNoKey) {
+            t = atomicCAS(&hot_key[s], kNoKey, f);
+            if (t == kNoKey) t = f;
           }
           if (t == f) {
-            atomicAdd(&cnt[s], c);
+            atomicAdd(&hot_cnt[s], c);
           } else {
             atomicAdd(a.out + f, c);
           }
@@ -183,62 +205,9 @@ __global__ void __launch_bounds__(kThreads) cms_hist_cached_kernel(HistArgs a) {
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
-    const int c = cnt[i];
-    if (c) atomicAdd(a.out + tag[i], c);
-  }
-}
-
-// The measured alternative: a thread-block cluster holds the bins in
-// distributed shared memory, a tile of them in each block, in passes of
-// kCluster tiles; lanes send warp-merged atomics into the owning block's
-// tile, and each block flushes its tile's non-zero counts into the output
-// with global atomics after a cluster barrier.
-constexpr int kCluster = 8;
-constexpr int kMaxTile = 48 * 1024;  // ints: 192 KB of shared memory
-
-__global__ void __launch_bounds__(kThreads) cms_hist_cluster_kernel(HistArgs a, int tile, int coop) {
-  extern __shared__ int tile_hist[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int lane = threadIdx.x & 31;
-  const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
-  const long long b1 = min(a.B, b0 + a.lanes_per_block);
-  const long long first = b0 + (threadIdx.x & ~31);
-  if (coop) {
-    clear_output(a);
-    cg::this_grid().sync();
-  }
-  const long long n_out = (long long)a.D * a.W;
-  const long long span = (long long)kCluster * tile;
-  for (long long p0 = 0; p0 < n_out; p0 += span) {
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) tile_hist[i] = 0;
-    cluster.sync();
-    for (long long base = first; base < b1; base += blockDim.x) {
-      const LaneKeys l = load_lane(a, base + lane, base + lane < b1);
-#pragma unroll
-      for (int d = 0; d < kMaxRows; ++d) {
-        if (d >= a.D) break;
-        const int key = l.keys[d];
-        const long long rel = (long long)d * a.W + key - p0;
-        const bool ok = l.on && (unsigned)key < (unsigned)a.W && rel >= 0 && rel < span;
-        const unsigned mask = __ballot_sync(kFull, ok);
-        if (ok) {
-          const int c = merged_count(mask, (int)rel, lane);
-          if (c) {
-            int* h = cluster.map_shared_rank(tile_hist, (unsigned)(rel / tile));
-            atomicAdd(h + rel % tile, c);
-          }
-        }
-      }
-    }
-    cluster.sync();
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      const long long o = p0 + (long long)rank * tile + i;
-      const int c = tile_hist[i];
-      if (o < n_out && c) atomicAdd(a.out + o, c);
-    }
-    __syncthreads();
+  for (int i = threadIdx.x; i < kHot; i += blockDim.x) {
+    const int c = hot_cnt[i];
+    if (c) atomicAdd(a.out + hot_key[i], c);
   }
 }
 
@@ -254,59 +223,12 @@ extern "C" int cms_hist_launch(const void* idx, const void* valid, long long B, 
                                           dim3(threads), args, 0, (cudaStream_t)stream);
 }
 
-extern "C" int cms_hist_cached_launch(const void* idx, const void* valid, long long B, int D,
-                                      int W, void* out, int grid, int threads,
-                                      int lanes_per_block, void* stream) {
+extern "C" int cms_hist_hot_launch(const void* idx, const void* valid, long long B, int D, int W,
+                                   void* out, int grid, int threads, int lanes_per_block,
+                                   void* stream) {
   HistArgs a = {(const int*)idx, (const unsigned char*)valid, B, D, W, lanes_per_block,
                 (int*)out};
   void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)cms_hist_cached_kernel, dim3(grid),
+  return (int)cudaLaunchCooperativeKernel((const void*)cms_hist_hot_kernel, dim3(grid),
                                           dim3(threads), args, 0, (cudaStream_t)stream);
-}
-
-// The alternative's launch: as many clusters as fit at once (at most 16),
-// the lanes cut evenly over their blocks. With coop = 0 the output is
-// cleared by a memset before a plain cluster launch. Returns the error.
-extern "C" int cms_hist_cluster_launch(const void* idx, const void* valid, long long B, int D,
-                                       int W, void* out, int coop, void* stream) {
-  const long long n_out = (long long)D * W;
-  const long long per_block = (n_out + kCluster - 1) / kCluster;
-  const int tile = (int)(per_block < kMaxTile ? per_block : kMaxTile);
-  const size_t smem = (size_t)tile * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      cms_hist_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute at[2];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = kCluster;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  at[1].id = cudaLaunchAttributeCooperative;
-  at[1].val.cooperative = coop;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(16 * kCluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)cms_hist_cluster_kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  cfg.numAttrs = 2;
-  clusters = clusters < 16 ? clusters : 16;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = clusters * kCluster;
-  cfg.gridDim = dim3(grid);
-  const long long per = (B + grid - 1) / grid;
-  const long long rounded = (per + 31) / 32 * 32;
-  const int lanes = (int)(rounded > 32 ? rounded : 32);
-  HistArgs a = {(const int*)idx, (const unsigned char*)valid, B, D, W, lanes, (int*)out};
-  if (!coop) {
-    err = cudaMemsetAsync(out, 0, (size_t)n_out * sizeof(int), (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = cudaLaunchKernelEx(&cfg, cms_hist_cluster_kernel, a, tile, coop);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }

@@ -228,33 +228,18 @@ def launch_cms_hist(
     LAUNCHES["cms_hist"] += 1
 
 
-def launch_cms_hist_cached(
+def launch_cms_hist_hot(
     idx: torch.Tensor, valid: torch.Tensor | None, width: int, out: torch.Tensor
 ) -> None:
-    """A measured design step of the histogram kernel (the warps' counts
-    merged in a shared-memory table per block); not counted in
-    ``LAUNCHES``."""
+    """A measured design step of the histogram kernel (warm keys merged
+    again per block in a shared table); not counted in ``LAUNCHES``."""
     d, b = idx.shape
     plan = hist_plan(b, d * width, sm_count(idx.device.index))
-    fn = _lib("cms_hist").cms_hist_cached_launch
+    fn = _lib("cms_hist").cms_hist_hot_launch
     fn.argtypes = _ARGTYPES["cms_hist"]
     fn.restype = ctypes.c_int
     rc = fn(_ptr(idx), _ptr(valid), b, d, width, _ptr(out), *plan, _stream(idx.device))
-    _check("cms_hist_cached", rc)
-
-
-def launch_cms_hist_cluster(
-    idx: torch.Tensor, valid: torch.Tensor | None, width: int, out: torch.Tensor, coop: bool
-) -> None:
-    """The measured alternative of the histogram kernel (a thread-block
-    cluster holding the bins in distributed shared memory); not counted
-    in ``LAUNCHES``."""
-    d, b = idx.shape
-    fn = _lib("cms_hist").cms_hist_cluster_launch
-    fn.argtypes = [_P, _P, _L, _I, _I, _P, _I, _P]
-    fn.restype = ctypes.c_int
-    rc = fn(_ptr(idx), _ptr(valid), b, d, width, _ptr(out), int(coop), _stream(idx.device))
-    _check("cms_hist_cluster", rc)
+    _check("cms_hist_hot", rc)
 
 
 @functools.cache
