@@ -895,44 +895,6 @@ def phase_times(cfg, device, results):
           f"({show_breakdown(k2['library_breakdown'])}), wall {k2['library_wall_ms']:.5f} ms")
 
 
-def phase_alt(cfg, device) -> dict:
-    """K2 against a measured design step on the same inputs (warm keys
-    merged again per block in a shared table), checked, then timed in
-    turns (kernel, variant, variant, kernel)."""
-    from opentelemetry_demo_tpu_torch.ops import _kernels, cms
-
-    rng = np.random.default_rng(9)
-    out = {}
-    shapes = []
-    for width in (cfg.cms_width, 32768):
-        lanes = batch_lanes(rng, cfg._replace(cms_width=width), 65536, device)
-        shapes.append((f"cms_count B=65536 D=4 W={width}", lanes["cidx"], lanes["valid"], width))
-        if width == cfg.cms_width:
-            keys = flat_keys(lanes["cidx"], lanes["valid"], width).view(1, -1)
-            shapes.append((f"flat {keys.numel()} keys into {4 * width} bins", keys, None, 4 * width))
-            uniform = torch.from_numpy(rng.integers(0, width, (4, 65536)).astype(np.int32)).to(device)
-            shapes.append(("uniform B=65536 W=8192", uniform, lanes["valid"], width))
-            shapes.append(("no valid lane B=65536 W=8192", lanes["cidx"], torch.zeros_like(lanes["valid"]), width))
-            shapes.append(("B=1 W=8192", lanes["cidx"][:, :1].contiguous(), lanes["valid"][:1], width))
-    hot = (torch.arange(4, dtype=torch.int32, device=device)[:, None] * 101 + 7).expand(4, 65536).contiguous()
-    shapes.append(("hot keys B=65536 W=8192", hot, torch.ones(65536, dtype=torch.bool, device=device), 8192))
-    for what, idx, valid, width in shapes:
-        def variant(idx=idx, valid=valid, width=width):
-            o = torch.empty((idx.shape[0], width), dtype=torch.int32, device=device)
-            _kernels.launch_cms_hist_hot(idx, valid, width, o)
-            return o
-
-        want = cms.cms_count_plain(idx, valid, width)
-        check(torch.equal(variant(), want) and torch.equal(variant(), want), f"variant differs ({what})")
-        kernel = lambda idx=idx, valid=valid, width=width: cms.cms_count(idx, valid, width)  # noqa: E731
-        turns = [time_ms(f, 200) for f in (kernel, variant, variant, kernel)]
-        out[what] = dict(turns=turns, kernel_ops=profile_ops(kernel), ops=profile_ops(variant))
-        print(f"alt {what}: kernel {turns[0][0]:.5f} / {turns[3][0]:.5f} ms, warm-key table "
-              f"{turns[1][0]:.5f} / {turns[2][0]:.5f} ms; kernel ops {show_breakdown(out[what]['kernel_ops'])}; "
-              f"table ops {show_breakdown(out[what]['ops'])}")
-    return out
-
-
 def mesh_on_cards(n_cards: int) -> int:
     """The four-rank mesh leg with NCCL between ``n_cards`` cards, held
     against the single-device step on card 0; no other phase."""
@@ -963,8 +925,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the card.")
     ap.add_argument("--nccl-cards", type=int, default=0,
                     help="run only the four-rank mesh leg over NCCL, one card per rank")
-    ap.add_argument("--alt", action="store_true",
-                    help="check K2 and time it against a measured design step, and stop")
     ap.add_argument("--times-only", metavar="JSON",
                     help="build the kernels and run only the timing phase, writing its record "
                          "to JSON (to compare two trees on one card in one call)")
@@ -986,14 +946,6 @@ def main() -> int:
     from opentelemetry_demo_tpu_torch.models import DetectorConfig
 
     cfg = DetectorConfig()
-    if args.alt:
-        phase_build()
-        phase_cms_hist(cfg, device, {})
-        OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / "alt.json").write_text(json.dumps({"card": card, "alt": phase_alt(cfg, device)},
-                                                     indent=1, default=str))
-        print(card)
-        return 0
     if args.times_only:
         phase_build()
         results = {name: {} for name in ("fused_update", "cms_hist", "sketch_delta")}

@@ -149,68 +149,6 @@ __global__ void __launch_bounds__(kThreads) cms_hist_kernel(HistArgs a) {
   }
 }
 
-// A design step, measured: a lane group of two or more (a key that
-// repeats within the warp, so a warm one) is merged once more across the
-// block's warps in a 256-slot shared table, claimed by the first key that
-// hashes to a slot and flushed after the block's lanes; single lanes and
-// keys whose slot is taken go straight to the output.
-constexpr int kHotBits = 8;
-constexpr int kHot = 1 << kHotBits;
-constexpr int kNoKey = -1;
-
-__global__ void __launch_bounds__(kThreads) cms_hist_hot_kernel(HistArgs a) {
-  __shared__ int hot_key[kHot];
-  __shared__ int hot_cnt[kHot];
-  const int lane = threadIdx.x & 31;
-  const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
-  const long long b1 = min(a.B, b0 + a.lanes_per_block);
-  const long long first = b0 + (threadIdx.x & ~31);
-  LaneKeys next = load_lane(a, first + lane, first + lane < b1);
-  for (int i = threadIdx.x; i < kHot; i += blockDim.x) {
-    hot_key[i] = kNoKey;
-    hot_cnt[i] = 0;
-  }
-  clear_output(a);
-  cg::this_grid().sync();
-  if (b0 >= b1) return;
-  for (long long base = first; base < b1; base += blockDim.x) {
-    const LaneKeys l = next;
-    const long long nb = base + blockDim.x;
-    if (nb < b1) next = load_lane(a, nb + lane, nb + lane < b1);
-#pragma unroll
-    for (int d = 0; d < kMaxRows; ++d) {
-      if (d >= a.D) break;
-      const int key = l.keys[d];
-      const bool ok = l.on && (unsigned)key < (unsigned)a.W;
-      const unsigned mask = __ballot_sync(kFull, ok);
-      if (ok) {
-        const int c = merged_count(mask, key, lane);
-        const int f = d * a.W + key;
-        if (c == 1) {
-          atomicAdd(a.out + f, 1);
-        } else if (c > 1) {
-          const int s = (int)(((unsigned)f * 2654435761u) >> (32 - kHotBits));
-          int t = ((volatile int*)hot_key)[s];
-          if (t == kNoKey) {
-            t = atomicCAS(&hot_key[s], kNoKey, f);
-            if (t == kNoKey) t = f;
-          }
-          if (t == f) {
-            atomicAdd(&hot_cnt[s], c);
-          } else {
-            atomicAdd(a.out + f, c);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kHot; i += blockDim.x) {
-    const int c = hot_cnt[i];
-    if (c) atomicAdd(a.out + hot_key[i], c);
-  }
-}
-
 }  // namespace
 
 extern "C" int cms_hist_launch(const void* idx, const void* valid, long long B, int D, int W,
@@ -220,15 +158,5 @@ extern "C" int cms_hist_launch(const void* idx, const void* valid, long long B, 
                 (int*)out};
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel((const void*)cms_hist_kernel, dim3(grid),
-                                          dim3(threads), args, 0, (cudaStream_t)stream);
-}
-
-extern "C" int cms_hist_hot_launch(const void* idx, const void* valid, long long B, int D, int W,
-                                   void* out, int grid, int threads, int lanes_per_block,
-                                   void* stream) {
-  HistArgs a = {(const int*)idx, (const unsigned char*)valid, B, D, W, lanes_per_block,
-                (int*)out};
-  void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)cms_hist_hot_kernel, dim3(grid),
                                           dim3(threads), args, 0, (cudaStream_t)stream);
 }

@@ -228,20 +228,6 @@ def launch_cms_hist(
     LAUNCHES["cms_hist"] += 1
 
 
-def launch_cms_hist_hot(
-    idx: torch.Tensor, valid: torch.Tensor | None, width: int, out: torch.Tensor
-) -> None:
-    """A measured design step of the histogram kernel (warm keys merged
-    again per block in a shared table); not counted in ``LAUNCHES``."""
-    d, b = idx.shape
-    plan = hist_plan(b, d * width, sm_count(idx.device.index))
-    fn = _lib("cms_hist").cms_hist_hot_launch
-    fn.argtypes = _ARGTYPES["cms_hist"]
-    fn.restype = ctypes.c_int
-    rc = fn(_ptr(idx), _ptr(valid), b, d, width, _ptr(out), *plan, _stream(idx.device))
-    _check("cms_hist_hot", rc)
-
-
 @functools.cache
 def sm_count(index: int) -> int:
     """The streaming multiprocessors of CUDA device ``index``, read once."""
