@@ -13,6 +13,19 @@ drives the main path end to end (OTLP protobuf bodies → decode →
 (``sketch_impl=None``: the fused-update kernel) and 65536
 (``sketch_impl="xla"``: the CMS-histogram kernel).
 
+The state that outlives a batch follows. Checkpoint resume, at the
+default config (the fused-update kernel) and at
+``DetectorConfig(cms_width=16384, sketch_impl="xla")`` (the
+CMS-histogram kernel): a pipeline is saved with a report in flight,
+resumed from the file on the card, and must equal an uninterrupted run
+bit for bit with the same flags; a truncated and a bit-flipped file must
+cold-start into quarantine. The metrics head: OTLP metric bodies for the
+shop's services at a virtual 10 s cadence, the head on the card against
+the CPU, with a ×10 rate step. The keyspace: a cardinality bomb on a
+virtual clock, the ladder, idle-key eviction on the card against the CPU
+twin, and the keyspace through a checkpoint. Each prints its times
+(lock held, save, load, CRC rate; head step; lock held per sweep).
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -21,6 +34,9 @@ sketch) mesh at global width 65536, with clean batches, a ×10 latency
 step on one service, and a short ring-merge replay. Integer banks must
 equal the single-device step's, batch replicas must be bit-identical,
 and the fault must flag on the first batch after onset and not before.
+Both worlds also resume a single-device snapshot
+(``checkpoint.load_onto_mesh``) and must continue as the single-device
+step does.
 
 Each leg's detector step is timed and split into its device operations
 (``torch.profiler``). It finishes with each kernel's time beside its
@@ -42,6 +58,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -240,7 +258,11 @@ def phase_build():
         (OUT_DIR / "chip_smoke_build.log").write_text(
             "\n".join(f"== {k}\n{v}" for k, v in _kernels.BUILD_LOG.items())
         )
-    print(f"build: {sorted(paths)} in {build_s:.2f} s")
+    from opentelemetry_demo_tpu_torch.runtime import frame
+
+    t0 = time.perf_counter()
+    check(frame.crc_backend() == "native", f"host CRC32C did not build: {frame._crc_error}")
+    print(f"build: {sorted(paths)} in {build_s:.2f} s; host CRC32C in {time.perf_counter() - t0:.2f} s")
 
 
 def hot_keys(lanes, cfg):
@@ -502,19 +524,42 @@ def mesh_warmup(cfg, width):
     return launch.Scenario(cfg, stream, launch.window_rotations(cfg.windows_s, 2, DT_S), DT_S)
 
 
-def phase_mesh_one_rank(cfg, device, widths=(2048, 65536), steps=(8, 6)):
+def resume_snapshot(cfg, stream, rotates, device, k, name):
+    """The single-device step over ``stream`` on the card, with its state
+    after step ``k`` saved as a checkpoint (``checkpoint.save_state``):
+    ``(path, final state, reports)``."""
+    from opentelemetry_demo_tpu_torch.runtime import checkpoint
+
+    ref_state, ref_reports, kept = single_device(cfg, stream, rotates, device, keep=(k,))
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / name)
+    checkpoint.save_state(path, kept[k], cfg, offsets={"0": k}, clock_t_prev=(k - 1) * DT_S)
+    return path, ref_state, ref_reports
+
+
+def phase_mesh_one_rank(cfg, device, widths=(2048, 65536), steps=(8, 6), resume=(8, 4)):
     """A one-rank NCCL world against the single-device step: any comm but
     NO_COMM takes the delta path, so the 1 × 1 mesh runs K3 at full
-    width."""
+    width. Then the elastic resume: a single-device snapshot at step
+    ``resume[1]`` of ``resume[0]`` (B = 2048) through
+    ``checkpoint.load_onto_mesh`` and on through the sharded step."""
+    from dataclasses import replace
+
     from opentelemetry_demo_tpu_torch.parallel import launch
 
     scen = []
     for i, (width, n) in enumerate(zip(widths, steps)):
         stream = launch.SyntheticStream(seed=20 + i, n_steps=n, width=width, num_services=cfg.num_services)
         scen.append(launch.Scenario(cfg, stream, launch.window_rotations(cfg.windows_s, n, DT_S), DT_S))
+    n_rs, k_rs = resume
+    rs_stream = launch.SyntheticStream(seed=23, n_steps=n_rs, width=widths[0], num_services=cfg.num_services)
+    rs_rot = launch.window_rotations(cfg.windows_s, n_rs, DT_S)
+    path, rs_state, rs_reports = resume_snapshot(cfg, rs_stream, rs_rot, device, k_rs, "mesh_one_rank")
+    resumed = launch.Scenario(cfg, replace(rs_stream, start=k_rs), rs_rot[k_rs:], DT_S, snapshot=path)
     t0 = time.perf_counter()
-    (out,) = launch.run_world(launch.replay_sharded, 1, device.type, None, 300.0, (1, 1), device.type,
-                              [mesh_warmup(cfg, widths[0]), *scen])
+    out = launch.run_world(launch.replay_sharded, 1, device.type, None, 300.0, (1, 1), device.type,
+                           [mesh_warmup(cfg, widths[0]), *scen, resumed])
+    (out,) = out
     world_s = time.perf_counter() - t0
     legs = {}
     for sc, got in zip(scen, out[1:]):
@@ -526,16 +571,27 @@ def phase_mesh_one_rank(cfg, device, widths=(2048, 65536), steps=(8, 6)):
                                           launches=got["launches"], max_float_diff=err)
         print(f"mesh 1-rank NCCL B={width}: {n} steps == single-device step (ints exact, floats "
               f"≤ {err:.3g}); {got['wall_s'] / n * 1e3:.3f} ms/step wall; launches {got['launches']}")
+    got = out[-1]
+    err = compare_to_single(got["state"], got["reports"], rs_state, rs_reports[k_rs:], "1-rank NCCL resume")
+    check(got["launches"]["sketch_delta"] == n_rs - k_rs, f"1-rank resume: launches {got['launches']}")
+    legs["nccl_1x1_resume"] = dict(steps=n_rs - k_rs, saved_at=k_rs, launches=got["launches"], max_float_diff=err)
+    print(f"mesh 1-rank NCCL resume: a single-device snapshot at step {k_rs} loaded with load_onto_mesh, "
+          f"{n_rs - k_rs} steps == the single-device continuation (ints exact, floats ≤ {err:.3g}); "
+          f"launches {got['launches']}")
     return legs
 
 
 def phase_mesh_four_ranks(cfg, device, results, backend="gloo", width=65536,
-                          n_clean=24, n_fault=3, n_ring=4):
+                          n_clean=24, n_fault=3, n_ring=4, resume_at=20):
     """A four-rank (2 batch × 2 sketch) world at global width ``width``:
     clean batches, then a ×10 latency step on one service, and a short
-    ring-merge replay of the same start, against the single-device step.
-    With gloo the four ranks share the one card (NCCL refuses two ranks on
-    one device); with NCCL each rank takes its own card."""
+    ring-merge replay of the same start, against the single-device step;
+    then the same stream resumed from a single-device snapshot at step
+    ``resume_at`` (``checkpoint.load_onto_mesh``). With gloo the four
+    ranks share the one card (NCCL refuses two ranks on one device); with
+    NCCL each rank takes its own card."""
+    from dataclasses import replace
+
     from opentelemetry_demo_tpu_torch.parallel import launch
 
     slow = 7
@@ -544,15 +600,17 @@ def phase_mesh_four_ranks(cfg, device, results, backend="gloo", width=65536,
                                    fault_service=slow, fault_from=n_clean)
     rot = launch.window_rotations(cfg.windows_s, n, DT_S)
     ring = launch.SyntheticStream(seed=30, n_steps=n_ring, width=width, num_services=cfg.num_services)
+    path, ref_state, ref_reports = resume_snapshot(cfg, fault, rot, device, resume_at, f"mesh_{backend}_2x2")
     scen = [launch.Scenario(cfg, fault, rot, DT_S),
-            launch.Scenario(cfg, ring, rot[:n_ring], DT_S, "ring")]
+            launch.Scenario(cfg, ring, rot[:n_ring], DT_S, "ring"),
+            launch.Scenario(cfg, replace(fault, start=resume_at), rot[resume_at:], DT_S, snapshot=path)]
     t0 = time.perf_counter()
     out = launch.run_world(launch.replay_sharded, 4, device.type, backend, 400.0, (2, 2), device.type,
                            [mesh_warmup(cfg, width), *scen])
     out = [rank_out[1:] for rank_out in out]
     world_s = time.perf_counter() - t0
     what = f"4-rank {backend} (2x2) B={width}"
-    ref_state, ref_reports, kept = single_device(cfg, fault, rot, device, keep=(n_ring,))
+    _, _, kept = single_device(cfg, fault, rot, device, keep=(n_ring,))
     got = out[0][0]
     # Heavy-hitter candidates are sampled per batch shard past the query
     # cap (16384 of each shard's 32768 lanes, against 16384 of 65536 on
@@ -576,6 +634,17 @@ def phase_mesh_four_ranks(cfg, device, results, backend="gloo", width=65536,
           f"mesh: first batch after onset flags {np.flatnonzero(flags[n_clean])}, not [{slow}]")
     launches = sum(rank_out[0]["launches"]["sketch_delta"] for rank_out in out)
     check(launches == 4 * n, f"sketch_delta launched {launches} times on the mesh")
+    resumed = out[0][2]
+    rs_err = compare_to_single(resumed["state"], resumed["reports"], ref_state, ref_reports[resume_at:],
+                               f"{what} resume", skip=("hh_ratio",))
+    rs_flags = [rep.flags for rep in resumed["reports"]]
+    check(not any(f.any() for f in rs_flags[: n_clean - resume_at]), "resumed mesh: flags before onset")
+    check(bool(rs_flags[n_clean - resume_at][slow]), "resumed mesh: no flag on the first batch after onset")
+    rs_launches = sum(rank_out[2]["launches"]["sketch_delta"] for rank_out in out)
+    check(rs_launches == 4 * (n - resume_at), f"resumed mesh: sketch_delta launched {rs_launches} times")
+    print(f"mesh {what} resume: a single-device snapshot at step {resume_at} loaded with load_onto_mesh on "
+          f"every rank, {n - resume_at} steps == the single-device continuation (ints exact, floats "
+          f"≤ {rs_err:.3g}), service {slow} flagged on the first batch after onset; launches {rs_launches}")
     step_ms = [rank_out[0]["wall_s"] / n * 1e3 for rank_out in out]
     print(f"mesh {what}: {n} steps == single-device step (ints exact, floats "
           f"≤ {err:.3g}), replicas bit-identical, service {slow} flagged on the first batch after "
@@ -585,6 +654,7 @@ def phase_mesh_four_ranks(cfg, device, results, backend="gloo", width=65536,
     return {f"{backend}_2x2_B{width}": dict(
         world_s=world_s, steps=n, step_wall_ms_per_rank=step_ms,
         launches_per_rank=[ro[0]["launches"] for ro in out], max_float_diff=err, ttd_batches=1,
+        resume=dict(saved_at=resume_at, steps=n - resume_at, launches=rs_launches, max_float_diff=rs_err),
     )}
 
 
@@ -727,6 +797,378 @@ def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, res
     results[kernel]["launches"] = launches[kernel]
     return dict(width=width, impl=impl, spans_per_s=rate, wall_s=wall, decode_s=decode_s,
                 batches=n_batches, ttd_batches=ttd, launches=launches)
+
+
+# -- the state that outlives a batch ------------------------------------------------
+
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+class TimedLock:
+    """A lock that records how long each holder kept it, in ms."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.held_ms: list[float] = []
+
+    def __enter__(self):
+        self.lock.acquire()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.held_ms.append((time.perf_counter() - self._t0) * 1e3)
+        self.lock.release()
+
+
+def same_bits(a, b, what):
+    for name, x, y in zip(a._fields, a, b):
+        check(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(),
+              f"{what}: {name} differs")
+
+
+def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, save_at=25):
+    """Resume on the card: a pipeline is saved with a report in flight
+    (``checkpoint.save`` under its dispatch lock), a fresh detector and
+    pipeline are built from the file (``load_resilient``, ``adopt_names``,
+    the window clock from the file), and the stream carries on through a
+    ×10 latency step. The resumed run must equal an uninterrupted run of
+    the same stream bit for bit, with the same flags; the file read on
+    the CPU must equal the card's state at the save; a truncated file and
+    a file with one flipped column byte must each cold-start and be
+    quarantined."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import checkpoint, frame
+    from opentelemetry_demo_tpu_torch.runtime.otlp import decode_export_request
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    check(frame.crc_backend() == "native", "the checkpoint CRC is not the native one")
+    cfg = DetectorConfig(cms_width=cms_width, sketch_impl=impl)
+    kernel = "fused_update" if impl is None else "cms_hist"
+    width, slow, n = 2048, 7, n_warm + n_fault
+    rng = np.random.default_rng(9)
+    bodies = make_bodies(rng, n_warm, width) + make_bodies(rng, n_fault, width, slow=slow)
+    records = [decode_export_request(b) for b in bodies]
+
+    def pipe_for(det, flags):
+        return DetectorPipeline(det, on_report=lambda t, rep, names: flags.append((rep.flags, names)),
+                                batch_size=width)
+
+    # The uninterrupted run, keeping the state at the save point.
+    flags_a: list = []
+    a = pipe_for(AnomalyDetector(cfg, device=device), flags_a)
+    _kernels.reset_launches()
+    for k in range(n):
+        a.submit(records[k])
+        a.pump(k * DT_S)
+        if k == save_at:
+            at_save = state_to_numpy(a.detector.state)
+    a.drain()
+    check(_kernels.LAUNCHES[kernel] == n, f"uninterrupted run: {kernel} launched {_kernels.LAUNCHES[kernel]}")
+    final_a = state_to_numpy(a.detector.state)
+
+    # The interrupted run: batches 0..save_at, the last one still in
+    # flight when the snapshot is taken.
+    flags_b: list = []
+    b = pipe_for(AnomalyDetector(cfg, device=device), flags_b)
+    _kernels.reset_launches()
+    for k in range(save_at):
+        b.submit(records[k])
+        b.pump(k * DT_S)
+    b.submit(records[save_at])
+    b.submit(records[save_at + 1])
+    b.pump(save_at * DT_S)  # dispatches batch save_at and leaves it in flight
+    check(len(b._inflight) == 1, f"{len(b._inflight)} reports in flight at the save")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    path = str(CKPT_DIR / f"resume_{kernel}")
+    lock = TimedLock(b._dispatch_lock)
+    t0 = time.perf_counter()
+    checkpoint.save(path, b.detector, offsets={"0": save_at + 1}, service_names=b.tensorizer.service_names,
+                    generation=b.tensorizer.generation, dispatch_lock=lock)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    lock_ms = lock.held_ms[0]
+    b.drain()
+
+    # A fresh detector and pipeline from the file, on the card.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det, meta, corrupt = checkpoint.load_resilient(path, cfg, device=device)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(det is not None and not corrupt, "the snapshot did not load")
+    check(meta["offsets"] == {"0": save_at + 1}, f"offsets {meta['offsets']}")
+    same_bits(state_to_numpy(det.state), at_save, "state loaded on the card vs the state at the save")
+    on_cpu, _ = checkpoint.load(path, cfg, device="cpu")
+    same_bits(state_to_numpy(on_cpu.state), at_save, "state loaded on the CPU vs the card's at the save")
+    flags_c: list = []
+    c = pipe_for(det, flags_c)
+    c.tensorizer.adopt_names(meta["service_names"])
+    check(c.tensorizer.service_names == b.tensorizer.service_names, "intern table not restored")
+    for k in range(save_at + 1, n):
+        c.submit(records[k])
+        c.pump(k * DT_S)
+    c.drain()
+    launches = _kernels.LAUNCHES[kernel]
+    check(launches == n + 1, f"interrupted + resumed runs: {kernel} launched {launches}, not {n + 1}")
+    same_bits(state_to_numpy(c.detector.state), final_a, "resumed run vs uninterrupted run")
+    stitched = flags_b[: save_at + 1] + flags_c
+    check(len(stitched) == n == len(flags_a), f"{len(stitched)} reports")
+    for k, ((fa, na), (fs, ns)) in enumerate(zip(flags_a, stitched)):
+        check(np.array_equal(fa, fs) and na == ns, f"flags differ at batch {k}: {na} vs {ns}")
+    target = f"service-{slow:02d}"
+    check(not any(names for _, names in stitched[:n_warm]), "flags before onset")
+    check(stitched[n_warm][1] == [target], f"first batch after onset flags {stitched[n_warm][1]}")
+
+    # Corrupt files cold-start and are quarantined.
+    with open(path + checkpoint.SUFFIX, "rb") as f:
+        blob = f.read()
+    # The byte offset of the cms_bank column: decode's arrays view the buffer.
+    col_off = frame.decode(blob).arrays["cms_bank"].ctypes.data - np.frombuffer(blob, np.uint8).ctypes.data
+    for what, bad in (("truncated", blob[: len(blob) // 2]),
+                      ("one flipped column byte", blob[:col_off + 5] + bytes([blob[col_off + 5] ^ 0x40])
+                       + blob[col_off + 6:])):
+        cpath = str(CKPT_DIR / "corrupt")
+        with open(cpath + checkpoint.SUFFIX, "wb") as f:
+            f.write(bad)
+        det_x, meta_x, was_corrupt = checkpoint.load_resilient(cpath, cfg, device=device)
+        check(det_x is None and meta_x is None and was_corrupt, f"a {what} file did not cold-start")
+        check(os.path.exists(cpath + checkpoint.SUFFIX + ".corrupt") and not checkpoint.exists(cpath),
+              f"a {what} file was not quarantined")
+        os.remove(cpath + checkpoint.SUFFIX + ".corrupt")
+
+    # The same save and load again, quiesced, and the CRC's rate.
+    saves, loads, holds = [], [], []
+    for _ in range(5):
+        lock = TimedLock(c._dispatch_lock)
+        t0 = time.perf_counter()
+        checkpoint.save(path, c.detector, service_names=c.tensorizer.service_names, dispatch_lock=lock)
+        saves.append((time.perf_counter() - t0) * 1e3)
+        holds.append(lock.held_ms[0])
+        t0 = time.perf_counter()
+        checkpoint.load(path, cfg, device=device)
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        frame.crc32c(blob)
+    crc_mb_s = 20 * len(blob) / (time.perf_counter() - t0) / 1e6
+    # The frame encode alone (two CRC passes and the host copies), the
+    # part of a save between the copy-out and the write.
+    fr = frame.decode(blob)
+    encodes = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        frame.encode(fr.arrays, fr.meta)
+        encodes.append((time.perf_counter() - t0) * 1e3)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    rec = dict(kernel=kernel, cms_width=cms_width, batches=n, save_at=save_at, launches=launches,
+               file_bytes=len(blob), lock_held_ms=lock_ms, save_ms=save_ms, load_ms=load_ms,
+               quiesced_lock_held_ms=holds, quiesced_save_ms=saves, quiesced_load_ms=loads,
+               encode_ms=encodes, crc_mb_per_s=crc_mb_s, crc_backend=frame.crc_backend())
+    print(f"checkpoint resume ({kernel}, cms width {cms_width}): {n} batches, saved at {save_at} with a "
+          f"report in flight and resumed on the card == uninterrupted run (state bit-identical, flags "
+          f"identical, {target} flagged on the first batch after onset); file {len(blob)} bytes read on the "
+          f"CPU == the card's state; truncated and flipped files quarantined; {kernel} launches {launches}")
+    print(f"  checkpoint times: lock held (copy-out enqueued) {lock_ms:.4f} ms, save {save_ms:.3f} ms, "
+          f"load {load_ms:.3f} ms; quiesced median lock {np.median(holds):.4f} ms, save "
+          f"{np.median(saves):.3f} ms (frame encode {np.median(encodes):.3f} ms), load "
+          f"{np.median(loads):.3f} ms; CRC32C {crc_mb_s:.0f} MB/s (native)")
+    results[kernel]["launches_resume"] = launches
+    return rec
+
+
+def metric_payload(rng, k, slow=None):
+    """One scrape of N_SERVICES services: two cumulative counters and two
+    gauges each; ``slow`` sends its request counter ten times faster."""
+    out = []
+    for i in range(N_SERVICES):
+        rate = 50.0 * (1 + i % 7) * (10.0 if i == slow else 1.0)
+        out.append((f"service-{i:02d}", [
+            ("http.server.requests", rate, True),
+            ("http.server.errors", 0.01 * rate, True),
+            ("queue.depth", float(rng.normal(40.0 + i, 1.5)), False),
+            ("process.cpu.utilization", float(rng.normal(0.3, 0.01)), False),
+        ]))
+    return out
+
+
+def phase_metrics_head(device, n_warm=20, n_fault=3, scrape_s=10.0):
+    """OTLP metric bodies for the shop's services at a virtual 10 s
+    cadence through ``decode_metrics_request`` and ``MetricsFeed`` with the
+    head on the card, beside the same feed on the CPU; after warm-up one
+    service's request counter runs ten times faster. Flags must fire on
+    the first pump after onset and never before, equal the CPU run's, and
+    the head state must equal the CPU's within rtol 1e-4 / atol 1e-5."""
+    from opentelemetry_demo_tpu_torch.runtime.metrics_feed import MetricsFeed
+    from opentelemetry_demo_tpu_torch.runtime.otlp_metrics import decode_metrics_request, encode_metrics_request
+
+    rng = np.random.default_rng(10)
+    slow = 11
+    card, cpu = MetricsFeed(device=device), MetricsFeed(device="cpu")
+    totals: dict = {}
+    flagged = []
+    for k in range(n_warm + n_fault):
+        scrape = []
+        for svc, metrics in metric_payload(rng, k, slow if k >= n_warm else None):
+            row = []
+            for name, value, counter in metrics:
+                if counter:
+                    # Cumulative: the rate over the scrape interval, with
+                    # a little noise in each interval's increment.
+                    inc = value * scrape_s * (1.0 + rng.normal(0.0, 0.02))
+                    value = totals[(svc, name)] = totals.get((svc, name), 0.0) + inc
+                row.append((name, value, counter))
+            scrape.append((svc, row))
+        body = encode_metrics_request(scrape, t_ns=10**18 + k * int(scrape_s * 1e9))
+        recs = decode_metrics_request(body)
+        card.submit(recs)
+        cpu.submit(recs)
+        rc, rp = card.pump(k * scrape_s), cpu.pump(k * scrape_s)
+        check((rc is None) == (rp is None), f"pump {k}: a report on one side only")
+        if rc is None:
+            continue
+        check(torch.equal(rc.flags.cpu(), rp.flags) and torch.equal(rc.cell_flags.cpu(), rp.cell_flags),
+              f"metric flags differ at pump {k}")
+        check(bool(torch.isfinite(rc.z).all()), f"z not finite at pump {k}")
+        if rc.flags.any():
+            flagged.append((k, card.flagged_services(rc, card.service_names)))
+    check(bool(flagged) and flagged[0] == (n_warm, [f"service-{slow:02d}"]),
+          f"metric flags {flagged[:3]}: not service-{slow:02d} on the first pump after onset alone")
+    worst = 0.0
+    for name, a, b in zip(card.head.state._fields, card.head.state, cpu.head.state):
+        a = a.cpu()
+        check(torch.allclose(a.double(), b.double(), rtol=RTOL, atol=ATOL), f"head state {name} differs")
+        worst = max(worst, float((a.double() - b.double()).abs().max()))
+    # One head step at full width: device and wall time, device operations.
+    x = rng.gamma(4.0, 50.0, (32, 32)).astype(np.float32)
+    obs = rng.random((32, 32)) < 0.5
+    step_ms, wall_ms = time_ms(lambda: card.head.observe(x, obs, scrape_s), 50)
+    ops = profile_ops(lambda: card.head.observe(x, obs, scrape_s), 20)
+    print(f"metrics head: {n_warm + n_fault} pumps of {N_SERVICES} services x 4 metrics on the card == CPU "
+          f"(flags identical, state within {worst:.3g}); service-{slow:02d} flagged on the first pump after "
+          f"onset; head step device {step_ms} ms, wall {wall_ms:.4f} ms")
+    print(f"  device operations per head step ({sum(v['per_call'] for v in ops.values()):g}): "
+          f"{show_breakdown(ops)}")
+    return dict(pumps=n_warm + n_fault, ttd_pumps=1, max_state_diff=worst, step_device_ms=step_ms,
+                step_wall_ms=wall_ms, step_ops=ops)
+
+
+def phase_keyspace(device, results, ticks=44, bomb_until=30, bomb_per_tick=4):
+    """A cardinality bomb on a virtual 1 s clock: the shop's services
+    beside fresh names that fill the intern table, through a pipeline on
+    the card and its twin on the CPU, each with a ``KeyspaceManager``. The
+    ladder climbs, the throttle and collapse rungs fold new keys to
+    overflow, ``evict_idle`` zeroes idle keys' rows on the card, ids
+    recycle behind generation bumps, and the ladder comes back down. After
+    each sweep the names, generation and free ids equal the CPU run's, the
+    card's state is its pre-sweep state with exactly the evicted rows
+    zeroed, and the integer banks equal the CPU's. Then the keyspace goes
+    through a checkpoint and back."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import checkpoint, keyspace
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import EVICTED_SLOT, SpanRecord
+
+    cfg = DetectorConfig()
+    clock = {"t": 1000.0}
+    pipes, mgrs, flags = [], [], ([], [])
+    for dev, fl in zip((device, "cpu"), flags):
+        p = DetectorPipeline(AnomalyDetector(cfg, device=dev), batch_size=2048,
+                             on_report=lambda t, rep, names, fl=fl: fl.append(rep.flags),
+                             keyspace_enable=True, keyspace_newkey_rate=2.0, clock=lambda: clock["t"])
+        pipes.append(p)
+        mgrs.append(keyspace.KeyspaceManager(p, idle_s=3.0, now_fn=lambda: clock["t"], rss_fn=lambda: 0))
+    card, cpu = pipes
+    timed = TimedLock(card._dispatch_lock)
+    rng = np.random.default_rng(11)
+    real = [f"service-{i:02d}" for i in range(N_SERVICES)]
+    levels, sweeps, holds = [], 0, []
+    _kernels.reset_launches()
+    for k in range(ticks):
+        names = real * 90 + [f"bomb-{k}-{i}" for i in range(bomb_per_tick if k < bomb_until else 0)
+                             for _ in range(10)]
+        lat = rng.gamma(8.0, 40.0, len(names))
+        tids = rng.integers(1, 2**63, len(names))
+        recs = [SpanRecord(nm, float(lat[j]), int(tids[j]), False, f"p-{j % 37}") for j, nm in enumerate(names)]
+        for p in pipes:
+            p.submit(recs)
+            p.pump(clock["t"])
+            p.drain()
+        before = state_to_numpy(card.detector.state)
+        names_before = card.tensorizer.service_names
+        card._dispatch_lock, timed.held_ms = timed, []
+        ticks_out = [m.tick() for m in mgrs]
+        card._dispatch_lock = timed.lock
+        check(ticks_out[0]["level"] == ticks_out[1]["level"] and ticks_out[0]["evicted"] == ticks_out[1]["evicted"],
+              f"tick {k}: card {ticks_out[0]} vs CPU {ticks_out[1]}")
+        tz, tz_cpu = card.tensorizer, cpu.tensorizer
+        check((tz.service_names, tz.generation, tz.free_ids, tz.overflow_assigns_total)
+              == (tz_cpu.service_names, tz_cpu.generation, tz_cpu.free_ids, tz_cpu.overflow_assigns_total),
+              f"tick {k}: interner differs from the CPU run's")
+        after = state_to_numpy(card.detector.state)
+        if ticks_out[0]["evicted"]:
+            sweeps += 1
+            holds.extend(timed.held_ms)
+            freed = [i for i, (was, now) in enumerate(zip(names_before, tz.service_names))
+                     if now == EVICTED_SLOT and was != EVICTED_SLOT]
+            check(len(freed) == len(ticks_out[0]["evicted"]), f"tick {k}: freed ids {freed}")
+            for name in after._fields:
+                want = np.array(getattr(before, name), copy=True)
+                if name == "hll_bank":
+                    want[:, :, freed, :] = 0
+                elif name in keyspace.MERGE_HEAD_ROWS:
+                    want[freed] = 0
+                check(getattr(after, name).tobytes() == want.tobytes(), f"tick {k}: {name} after the sweep")
+        ref = state_to_numpy(cpu.detector.state)
+        for name in ("hll_bank", "cms_bank", "step_idx"):
+            check(np.array_equal(getattr(after, name), getattr(ref, name)), f"tick {k}: {name} differs from CPU")
+        for name in after._fields:
+            a, b = getattr(after, name), getattr(ref, name)
+            if a.dtype.kind == "f":
+                check(np.allclose(a, b, rtol=RTOL, atol=ATOL), f"tick {k}: {name} differs from CPU")
+        levels.append(ticks_out[0]["level"])
+        clock["t"] += 1.0
+    launches = _kernels.LAUNCHES["fused_update"]
+    check(launches == ticks, f"fused_update launched {launches} times in {ticks} ticks")
+    check(len(flags[0]) == len(flags[1]) == ticks and all(np.array_equal(a, b) for a, b in zip(*flags)),
+          "flags differ from the CPU run's")
+    check(max(levels) >= 3 and levels[-1] == 0, f"ladder levels {levels}")
+    tz = card.tensorizer
+    check(tz.generation >= 2 and tz.overflow_assigns_total > 0 and sweeps >= 2,
+          f"generation {tz.generation}, overflow {tz.overflow_assigns_total}, sweeps {sweeps}")
+    check(set(real) <= set(tz._svc_snapshot), "a real service lost its slot")
+    throttled = dict(card.stats.newkey_throttled_tenant)
+    collapsed = dict(card.stats.overflow_keys_tenant)
+    check(bool(throttled) and bool(collapsed), f"throttled {throttled}, collapsed {collapsed}")
+
+    # The keyspace through a checkpoint and back.
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    path = str(CKPT_DIR / "keyspace")
+    checkpoint.save(path, card.detector, service_names=tz.service_names, generation=tz.generation,
+                    dispatch_lock=card._dispatch_lock)
+    det, meta, _ = checkpoint.load_resilient(path, cfg, device=device)
+    back = DetectorPipeline(det, batch_size=2048)
+    back.tensorizer.adopt_names(meta["service_names"])
+    check(meta["generation"] == tz.generation, "generation not restored")
+    check(back.tensorizer.service_names == tz.service_names and back.tensorizer._svc_snapshot == tz._svc_snapshot
+          and back.tensorizer._free_ids == tz._free_ids, "names, tombstones or free ids not restored")
+    same_bits(state_to_numpy(det.state), state_to_numpy(card.detector.state), "keyspace checkpoint state")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"keyspace: {ticks} ticks ({bomb_per_tick} fresh names a tick for {bomb_until}) on the card == CPU; "
+          f"ladder {levels}; {sweeps} sweeps, generation {tz.generation}, {tz.evicted_total} ids retired, "
+          f"overflow assigns {tz.overflow_assigns_total}, throttled {throttled}, collapsed {collapsed}; "
+          f"lock held per sweep {[round(x, 4) for x in holds]} ms; checkpoint round trip kept the "
+          f"tombstones; fused_update launches {launches}")
+    results["fused_update"]["launches_keyspace"] = launches
+    return dict(ticks=ticks, levels=levels, sweeps=sweeps, generation=tz.generation,
+                evicted_total=tz.evicted_total, overflow_assigns=tz.overflow_assigns_total,
+                throttled=throttled, collapsed=collapsed, lock_held_ms=holds, launches=launches)
 
 
 def phase_step_time(device, impl, width):
@@ -908,6 +1350,7 @@ def mesh_on_cards(n_cards: int) -> int:
     phase_build()
     results = {"sketch_delta": {}}
     mesh = phase_mesh_four_ranks(DetectorConfig(), torch.device("cuda"), results, backend="nccl")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_nccl.json").write_text(json.dumps(
         {"card": card, "count": torch.cuda.device_count(), "mesh": mesh,
@@ -978,8 +1421,15 @@ def main() -> int:
         print(f"  device operations per step (B={leg['width']} impl={leg['impl']}, "
               f"{sum(v['per_call'] for _, v in ops):g} in all, {sum(v['ms'] for _, v in ops):.5f} ms): "
               f"{show_breakdown(dict(ops))}")
+    state = dict(
+        checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
+                    phase_checkpoint(device, "xla", 16384, results)],
+        metrics_head=phase_metrics_head(device),
+        keyspace=phase_keyspace(device, results),
+    )
     mesh = phase_mesh_one_rank(cfg, device)
     mesh.update(phase_mesh_four_ranks(cfg, device, results))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     phase_times(cfg, device, results)
 
     src = "opentelemetry_demo_tpu_torch/csrc"
@@ -999,7 +1449,7 @@ def main() -> int:
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "mesh": mesh,
+        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from ..models.detector import DetectorConfig, DetectorReport, state_to_numpy
 from ..models.windows import WindowClock
 from ..ops import _kernels
+from ..runtime import checkpoint
 from ..runtime.tensorize import SpanTensorizer
 from .mesh import host_staged, make_hybrid_mesh, make_mesh, rank_device
 from .ring import merge_states_across
@@ -168,7 +169,9 @@ class SyntheticStream:
     ``n_active`` services with their own latency scales, a 1% error rate,
     Zipf-distributed attributes, ``width // 32`` padding lanes per batch,
     and from step ``fault_from`` on (when ``>= 0``) a ``fault_scale``×
-    latency step on ``fault_service``. Iterating yields ``TensorBatch``es."""
+    latency step on ``fault_service``. Iterating yields ``TensorBatch``es,
+    from step ``start`` on (the steps before it are drawn and dropped, so
+    a stream resumed at ``start`` continues the same batches)."""
 
     seed: int
     n_steps: int
@@ -178,6 +181,7 @@ class SyntheticStream:
     fault_service: int = 0
     fault_from: int = -1
     fault_scale: float = 10.0
+    start: int = 0
 
     def __iter__(self):
         rng = np.random.default_rng(self.seed)
@@ -188,13 +192,15 @@ class SyntheticStream:
             lat = rng.gamma(8.0, 300.0 * (1.0 + svc) / 8.0)
             if 0 <= self.fault_from <= k:
                 lat = np.where(svc == self.fault_service, lat * self.fault_scale, lat)
-            yield tz.pack_arrays(
+            batch = tz.pack_arrays(
                 svc,
                 lat.astype(np.float32),
                 rng.integers(0, 2**63, n, dtype=np.uint64),
                 (rng.random(n) < 0.01).astype(np.float32),
                 (rng.zipf(1.3, n) % 500).astype(np.uint64),
             )
+            if k >= self.start:
+                yield batch
 
 
 def window_rotations(windows_s: Sequence[float], n_steps: int, dt: float) -> list[np.ndarray]:
@@ -206,13 +212,16 @@ def window_rotations(windows_s: Sequence[float], n_steps: int, dt: float) -> lis
 class Scenario(NamedTuple):
     """One replay: global batches (lane tuples such as ``TensorBatch``, or
     a :class:`SyntheticStream`) with a rotate mask per step, a fixed
-    ``dt`` and the merge to use."""
+    ``dt`` and the merge to use. With ``snapshot`` (a checkpoint path)
+    the replay resumes from it (``checkpoint.load_onto_mesh``) instead of
+    a fresh state."""
 
     config: DetectorConfig
     batches: Iterable
     rotates: Sequence
     dt: float = 0.25
     comm_impl: str = "direct"
+    snapshot: str | None = None
 
 
 def _report_to_numpy(report: DetectorReport) -> DetectorReport:
@@ -235,6 +244,8 @@ def replay_sharded(layout: tuple, device_type: str, scenarios: Sequence[Scenario
     for sc in scenarios:
         batches = list(sc.batches)
         step, state = make_sharded_step(sc.config, mesh, sc.comm_impl)
+        if sc.snapshot is not None:
+            state, _meta = checkpoint.load_onto_mesh(sc.snapshot, sc.config, mesh)
         dt = torch.tensor(sc.dt, dtype=torch.float32, device=mesh.device)
         reports = []
         _kernels.reset_launches()

@@ -16,8 +16,11 @@ Batches are fixed width ``B`` with a validity mask. The arrays stay
 numpy (the hash lanes ``uint32``); the detector moves them to the device
 in one copy and reinterprets the hash lanes as ``int32``.
 
-Idle-key eviction, the new-key admission gate and the per-worker intern
-arenas of the reference arrive with the keyspace and ingest-pool slices.
+The intern table is bounded and has a key lifecycle (driven by
+``runtime.keyspace``): ids of idle keys retire into a free list behind a
+generation bump and are reused lowest first, and a new-key gate lets the
+keyspace ladder park new keys in the overflow bucket. The per-worker
+intern arenas of the reference arrive with the ingest-pool slice.
 """
 
 from __future__ import annotations
@@ -25,11 +28,18 @@ from __future__ import annotations
 import threading
 import zlib
 from dataclasses import dataclass
-from typing import Iterable, NamedTuple
+from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 
 from ..ops.hashing import split_hi_lo_np, splitmix64_np
+
+# Positional placeholder for an id slot the keyspace evictor freed and
+# nothing has reclaimed yet. It round-trips through every surface that
+# carries the name table positionally (checkpoint meta) and cannot
+# collide with a real service name: OTLP service.name values are
+# printable, so a NUL-prefixed sentinel cannot be interned from the wire.
+EVICTED_SLOT = "\x00evicted"
 
 
 class SpanEvent(NamedTuple):
@@ -114,8 +124,9 @@ class SpanTensorizer:
     """Stateful bounded interner + vectorised hasher; one per stream.
 
     ``num_services`` bounds the service axis of every sketch; the last id
-    is the overflow ("other") bucket, which a name gets once the table is
-    full. Such a name is not memorised, so memory stays bounded.
+    is the overflow ("other") bucket. A name that cannot get a slot (the
+    table is full, or ``new_key_gate`` refused it) folds into the bucket
+    and is not memorised, so memory stays bounded.
     """
 
     num_services: int = 32
@@ -123,18 +134,45 @@ class SpanTensorizer:
 
     def __post_init__(self) -> None:
         self._svc_ids: dict[str, int] = {}
-        self._names_by_id: list[str] = []
         # Receivers intern on their own threads; the lock makes
         # check-then-assign atomic. Hits read an immutable snapshot dict
-        # without the lock.
+        # without the lock; a miss republishes a fresh snapshot.
         self._intern_lock = threading.Lock()
         self._svc_snapshot: dict[str, int] = {}
+        # Id-ordered mirror of _svc_ids (None = never assigned,
+        # EVICTED_SLOT = freed, awaiting reuse): positional order
+        # survives id recycling, which dict insertion order does not.
+        self._names_by_id: list[str | None] = []
+        self._free_ids: list[int] = []  # retired ids, ascending reuse
+        self._next_id = 0  # next never-used dense slot
+        # Bumped once per retirement sweep; checkpoints carry it so a
+        # restored process knows which ids were recycled.
+        self.generation = 0
+        # Consulted under the intern lock on a genuine miss only: False
+        # parks the new key in the overflow bucket (the keyspace
+        # ladder's throttle and collapse rungs). Known keys never reach it.
+        self.new_key_gate: Callable[[str], bool] | None = None
+        self.evicted_total = 0  # ids retired over the process lifetime
         self.overflow_assigns_total = 0  # misses parked in overflow
 
     @property
     def service_names(self) -> list[str]:
-        """Positional name table: index i is the name owning id i."""
-        return list(self._names_by_id)
+        """Positional name table: index i is the name owning id i
+        (EVICTED_SLOT marks freed slots)."""
+        return [EVICTED_SLOT if n is None else n for n in self._names_by_id]
+
+    @property
+    def capacity(self) -> int:
+        """Real (non-overflow) id slots."""
+        return self.num_services - 1
+
+    @property
+    def live_keys(self) -> int:
+        return len(self._svc_ids)
+
+    @property
+    def free_ids(self) -> int:
+        return len(self._free_ids)
 
     def service_id(self, name: str) -> int:
         sid = self._svc_snapshot.get(name)
@@ -143,19 +181,96 @@ class SpanTensorizer:
                 sid = self._assign_locked(name)
         return sid
 
-    def _assign_locked(self, name: str) -> int:
-        """Assign (or find) ``name``'s id under the intern lock: dense
-        first-appearance ranks, the last id reserved as overflow."""
+    def _assign_locked(self, name: str, publish: bool = True) -> int:
+        """Assign (or find) ``name``'s id under the intern lock: recycled
+        ids first (ascending), then dense first-appearance ranks, the
+        last id reserved as overflow. ``publish=False`` leaves the
+        snapshot publication to the caller (one per batch)."""
         sid = self._svc_ids.get(name)
         if sid is None:
-            if len(self._names_by_id) >= self.num_services - 1:
+            gate = self.new_key_gate
+            if gate is not None and not gate(name):
+                # Refused: overflow, and not memorised, so the key
+                # applies again on its next sighting.
                 self.overflow_assigns_total += 1
                 return self.num_services - 1
-            sid = len(self._names_by_id)
+            if self._free_ids:
+                sid = self._free_ids.pop(0)
+            elif self._next_id < self.num_services - 1:
+                sid = self._next_id
+                self._next_id += 1
+            else:
+                self.overflow_assigns_total += 1
+                return self.num_services - 1
             self._svc_ids[name] = sid
-            self._names_by_id.append(name)
-            self._svc_snapshot = dict(self._svc_ids)
+            while len(self._names_by_id) <= sid:
+                self._names_by_id.append(None)
+            self._names_by_id[sid] = name
+            if publish:
+                self._svc_snapshot = dict(self._svc_ids)
         return sid
+
+    def intern_many(self, names: list[str]) -> list[int]:
+        """Batched intern with at most one lock acquisition. Misses are
+        assigned in first-appearance order of ``names``, so ids equal a
+        serial :meth:`service_id` loop's; names the table refused resolve
+        to the overflow id without being memorised."""
+        snap = self._svc_snapshot
+        if all(n in snap for n in names):
+            return [snap[n] for n in names]
+        ov = self.num_services - 1
+        with self._intern_lock:
+            before = len(self._svc_ids)
+            for n in names:
+                if n not in self._svc_ids:
+                    self._assign_locked(n, publish=False)
+            if len(self._svc_ids) != before:
+                self._svc_snapshot = dict(self._svc_ids)
+            snap = self._svc_snapshot
+        return [snap.get(n, ov) for n in names]
+
+    def retire_services(self, names: list[str]) -> list[int]:
+        """Retire ``names``: their ids join the free list (ascending) and
+        the generation bumps once for the sweep. Returns the freed ids.
+
+        The caller holds the pipeline's dispatch lock and has zeroed the
+        retired rows of the detector state first: a freed id can go to a
+        new service on the very next flush.
+        """
+        freed: list[int] = []
+        with self._intern_lock:
+            for name in names:
+                sid = self._svc_ids.pop(name, None)
+                if sid is None or sid >= self.num_services - 1:
+                    continue  # unknown, or the overflow bucket
+                self._names_by_id[sid] = EVICTED_SLOT
+                freed.append(sid)
+            if freed:
+                self._free_ids.extend(freed)
+                self._free_ids.sort()
+                self.evicted_total += len(freed)
+                self.generation += 1
+                self._svc_snapshot = dict(self._svc_ids)
+        return freed
+
+    def adopt_names(self, names: list[str]) -> None:
+        """Rebuild the table positionally from a checkpoint's name list
+        (index = id), EVICTED_SLOT tombstones as free slots. A plain
+        :meth:`service_id` replay would re-densify around the holes and
+        shift every id after the first tombstone."""
+        with self._intern_lock:
+            self._svc_ids = {}
+            self._names_by_id = []
+            self._free_ids = []
+            for sid, name in enumerate(names[: self.num_services - 1]):
+                if name is None or name == EVICTED_SLOT:
+                    self._names_by_id.append(EVICTED_SLOT)
+                    self._free_ids.append(sid)
+                else:
+                    self._names_by_id.append(name)
+                    self._svc_ids[name] = sid
+            self._next_id = len(self._names_by_id)
+            self._svc_snapshot = dict(self._svc_ids)
 
     def tensorize(self, records: Iterable[SpanRecord]) -> list[TensorBatch]:
         """Pack records into one or more fixed-width batches."""
