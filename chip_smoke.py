@@ -63,6 +63,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -836,7 +837,8 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
     the same stream bit for bit, with the same flags; the file read on
     the CPU must equal the card's state at the save; a truncated file and
     a file with one flipped column byte must each cold-start and be
-    quarantined."""
+    quarantined. Saves taken while the card is busy must hold the lock
+    for a fraction of the busy time."""
     from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
     from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
     from opentelemetry_demo_tpu_torch.ops import _kernels
@@ -939,6 +941,29 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
               f"a {what} file was not quarantined")
         os.remove(cpath + checkpoint.SUFFIX + ".corrupt")
 
+    # Saves with the card busy: a step in flight, then ~20 ms of spin on
+    # the stream. The lock must not wait for the card, and the file must
+    # hold the state after that step (the copy-out is stream-ordered).
+    busy_holds, busy_ms = [], []
+    for r in range(5):
+        c.submit(records[n - 2])
+        c.submit(records[n - 1])
+        c.pump((n + 2 * r) * DT_S)  # one step in flight, one batch queued
+        check(len(c._inflight) == 1, f"{len(c._inflight)} reports in flight at a busy save")
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(40_000_000)
+        e1.record()
+        lock = TimedLock(c._dispatch_lock)
+        checkpoint.save(path, c.detector, service_names=c.tensorizer.service_names, dispatch_lock=lock)
+        saved, _ = checkpoint.load(path, cfg, device="cpu")
+        same_bits(state_to_numpy(saved.state), state_to_numpy(c.detector.state), f"busy save {r}")
+        c.drain()
+        busy_ms.append(e0.elapsed_time(e1))
+        busy_holds.append(lock.held_ms[0])
+    check(max(busy_holds) < min(busy_ms) / 4,
+          f"the lock waited for the card: held {busy_holds} ms with the card busy {busy_ms} ms")
+
     # The same save and load again, quiesced, and the CRC's rate.
     saves, loads, holds = [], [], []
     for _ in range(5):
@@ -967,6 +992,7 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
     rec = dict(kernel=kernel, cms_width=cms_width, batches=n, save_at=save_at, launches=launches,
                file_bytes=len(blob), lock_held_ms=lock_ms, save_ms=save_ms, load_ms=load_ms,
                quiesced_lock_held_ms=holds, quiesced_save_ms=saves, quiesced_load_ms=loads,
+               busy_lock_held_ms=busy_holds, busy_card_ms=busy_ms,
                encode_ms=encodes, crc_mb_per_s=crc_mb_s, crc_backend=frame.crc_backend())
     print(f"checkpoint resume ({kernel}, cms width {cms_width}): {n} batches, saved at {save_at} with a "
           f"report in flight and resumed on the card == uninterrupted run (state bit-identical, flags "
@@ -976,6 +1002,8 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
           f"load {load_ms:.3f} ms; quiesced median lock {np.median(holds):.4f} ms, save "
           f"{np.median(saves):.3f} ms (frame encode {np.median(encodes):.3f} ms), load "
           f"{np.median(loads):.3f} ms; CRC32C {crc_mb_s:.0f} MB/s (native)")
+    print(f"  saves with the card busy: lock held {[round(x, 4) for x in busy_holds]} ms while the card "
+          f"spun {[round(x, 2) for x in busy_ms]} ms; each file == the state after the in-flight step")
     results[kernel]["launches_resume"] = launches
     return rec
 
@@ -1067,6 +1095,22 @@ def phase_keyspace(device, results, ticks=44, bomb_until=30, bomb_per_tick=4):
     card's state is its pre-sweep state with exactly the evicted rows
     zeroed, and the integer banks equal the CPU's. Then the keyspace goes
     through a checkpoint and back."""
+    from opentelemetry_demo_tpu_torch.runtime import pipeline
+
+    # The pipeline stamps last-seen times and refills the throttle's
+    # token buckets from ``time.monotonic``: both pipelines read the
+    # virtual clock while the bomb runs.
+    clock = {"t": 1000.0}
+    wall = pipeline.time
+    pipeline.time = types.SimpleNamespace(monotonic=lambda: clock["t"], perf_counter=time.perf_counter,
+                                          time=time.time, sleep=time.sleep)
+    try:
+        return _keyspace_bomb(device, results, clock, ticks, bomb_until, bomb_per_tick)
+    finally:
+        pipeline.time = wall
+
+
+def _keyspace_bomb(device, results, clock, ticks, bomb_until, bomb_per_tick):
     from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
     from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
     from opentelemetry_demo_tpu_torch.ops import _kernels
@@ -1075,12 +1119,11 @@ def phase_keyspace(device, results, ticks=44, bomb_until=30, bomb_per_tick=4):
     from opentelemetry_demo_tpu_torch.runtime.tensorize import EVICTED_SLOT, SpanRecord
 
     cfg = DetectorConfig()
-    clock = {"t": 1000.0}
     pipes, mgrs, flags = [], [], ([], [])
     for dev, fl in zip((device, "cpu"), flags):
         p = DetectorPipeline(AnomalyDetector(cfg, device=dev), batch_size=2048,
                              on_report=lambda t, rep, names, fl=fl: fl.append(rep.flags),
-                             keyspace_enable=True, keyspace_newkey_rate=2.0, clock=lambda: clock["t"])
+                             keyspace_enable=True, keyspace_newkey_rate=2.0)
         pipes.append(p)
         mgrs.append(keyspace.KeyspaceManager(p, idle_s=3.0, now_fn=lambda: clock["t"], rss_fn=lambda: 0))
     card, cpu = pipes

@@ -74,17 +74,14 @@ def metrics_head_step(
     x: torch.Tensor,  # float32[S, M] — rate/level observations
     observed: torch.Tensor,  # bool[S, M] — which cells saw data
     dt: torch.Tensor,  # float32[] — seconds since the previous step
-    taus: torch.Tensor | None = None,  # float32[T]: config.taus_s on the device
 ) -> tuple[MetricsHeadState, MetricsHeadReport]:
     """One EWMA z step, **in place** on ``state`` (also returned), and
     its report. z is taken against the prior state, then the state
-    absorbs the observation (West's update). ``taus`` saves the copy of
-    ``config.taus_s`` to the device (:class:`MetricsHead` sends it with
-    the step's other inputs)."""
+    absorbs the observation (West's update)."""
     x = x.to(torch.float32)[:, :, None]  # [S, M, 1]
     obs3 = observed.to(torch.bool)[:, :, None]  # [S, M, 1]
-    if taus is None:
-        taus = torch.tensor(config.taus_s, dtype=torch.float32, device=x.device)
+    # From pageable memory without a wait: the copy is staged at once.
+    taus = torch.tensor(config.taus_s, dtype=torch.float32).to(x.device, non_blocking=True)
     # Debiased smoothing: until a cell has seen ~1/α observations, the
     # running-average weight.
     alpha = torch.maximum(
@@ -127,8 +124,8 @@ def head_state_from_numpy(state_np, device: "torch.device | str | None" = None) 
 class MetricsHead:
     """Owns the head state on its device and steps it.
 
-    A step's inputs go to the device in one copy (``x``, ``observed``,
-    ``dt`` and the timescales packed into one pinned float32 buffer), so
+    ``x``, ``observed`` and ``dt`` go to the device in one copy (packed
+    into one pinned float32 buffer), so
     ``observe`` never waits on the card; the report stays on the device.
     """
 
@@ -145,12 +142,11 @@ class MetricsHead:
         s, m = self.config.num_services, self.config.num_metrics
         n = s * m
         cuda = self.device.type == "cuda"
-        buf = torch.empty(2 * n + 1 + self.config.num_taus, dtype=torch.float32, pin_memory=cuda)
+        buf = torch.empty(2 * n + 1, dtype=torch.float32, pin_memory=cuda)
         host = buf.numpy()
         host[:n] = np.asarray(x, np.float32).reshape(-1)
         host[n:2 * n] = np.asarray(observed, bool).reshape(-1)
         host[2 * n] = np.float32(dt)
-        host[2 * n + 1:] = self.config.taus_s
         dev = buf.to(self.device, non_blocking=True) if cuda else buf
         self.state, report = metrics_head_step(
             self.config,
@@ -158,6 +154,5 @@ class MetricsHead:
             dev[:n].view(s, m),
             dev[n:2 * n].view(s, m) != 0,
             dev[2 * n],
-            dev[2 * n + 1:],
         )
         return report

@@ -74,9 +74,7 @@ class DetectorPipeline:
     ``on_report(t, report, flagged_names)`` fires for every harvested
     report, with ``report`` unpacked to numpy. ``tenant_of`` maps a
     service name to its tenant for the new-key throttle (None: one
-    tenant). ``clock`` stamps each key's last-seen time and refills the
-    throttle's token buckets (``time.monotonic`` unless a replay drives
-    a virtual clock).
+    tenant).
     """
 
     def __init__(
@@ -91,7 +89,6 @@ class DetectorPipeline:
         keyspace_low_watermark: float = 0.70,
         keyspace_hold_s: float = 5.0,
         keyspace_newkey_rate: float = 64.0,
-        clock: Callable[[], float] = time.monotonic,
     ):
         self.detector = detector
         self.on_report = on_report
@@ -109,7 +106,6 @@ class DetectorPipeline:
         self._inflight: deque = deque()
         self._last_t: float | None = None
         self._dispatch_lock = threading.Lock()
-        self._clock = clock
         self._tenant_of = tenant_of
         # Key lifecycle: per-id last-seen clock, the ladder's state, and
         # the new-key gate the tensorizer consults on a genuine miss.
@@ -122,7 +118,7 @@ class DetectorPipeline:
         self._keyspace_level = 0
         self._ks_saturated = False
         self._ks_sat_since = 0.0
-        self._ks_unsat_since = clock()
+        self._ks_unsat_since = time.monotonic()
         self._ks_level_changed_at = 0.0
         self._ks_newkey_buckets: dict[str, tuple[float, float]] = {}
         self._last_seen = np.zeros(detector.config.num_services, np.float64)
@@ -142,7 +138,7 @@ class DetectorPipeline:
             return
         # A key is "seen" when rows arrive for it. Ids past the table clip
         # to the overflow slot, as the device scatter does.
-        self._last_seen[np.minimum(cols.svc, self._last_seen.shape[0] - 1)] = self._clock()
+        self._last_seen[np.minimum(cols.svc, self._last_seen.shape[0] - 1)] = time.monotonic()
         with self._pending_lock:
             self._pending.append((cols, time.monotonic()))
             self._pending_rows += cols.rows
@@ -162,7 +158,7 @@ class DetectorPipeline:
         ``keyspace_hold_s`` of sustained state in either direction, so
         one fill spike never staircases to the top.
         """
-        now = self._clock() if now is None else now
+        now = time.monotonic() if now is None else now
         with self._keyspace_lock:
             if not self._ks_saturated:
                 if fill >= self.keyspace_high_watermark or rss_over:
@@ -211,7 +207,7 @@ class DetectorPipeline:
         rate = self.keyspace_newkey_rate
         if rate <= 0:
             return True
-        now = self._clock()
+        now = time.monotonic()
         with self._keyspace_lock:
             tokens, t_last = self._ks_newkey_buckets.get(tenant, (rate, now))
             tokens = min(tokens + (now - t_last) * rate, rate)

@@ -324,16 +324,19 @@ def test_a_bomb_replayed_through_both_packages_keeps_them_equal(monkeypatch):
     the evictor on one virtual clock: after every round the two
     packages' tables, levels, counters and states agree. The reference
     stamps last-seen times and refills token buckets from
-    ``time.monotonic``, so its module reads the virtual clock here."""
+    ``time.monotonic``, as the port does, so both modules read the
+    virtual clock here."""
     clock = {"t": 5000.0}
-    monkeypatch.setattr(jpipe, "time", types.SimpleNamespace(
-        monotonic=lambda: clock["t"], perf_counter=time.perf_counter, time=time.time))
+    virtual = types.SimpleNamespace(monotonic=lambda: clock["t"], perf_counter=time.perf_counter,
+                                    time=time.time, sleep=time.sleep)
+    for mod in (jpipe, pipeline):
+        monkeypatch.setattr(mod, "time", virtual)
     kw = dict(keyspace_enable=True, keyspace_hold_s=2.0, keyspace_newkey_rate=1.0)
     ref = jpipe.DetectorPipeline(JDetector(JConfig(**SMALL)), on_report=lambda *a: None,
                                  batch_size=256, **kw)
     got = pipeline.DetectorPipeline(
         tdet.AnomalyDetector(tdet.DetectorConfig(**SMALL), device="cpu"),
-        on_report=lambda *a: None, batch_size=256, clock=lambda: clock["t"], **kw,
+        on_report=lambda *a: None, batch_size=256, **kw,
     )
     mgrs = [mod.KeyspaceManager(p, idle_s=1.5, evict_batch=2, now_fn=lambda: clock["t"],
                                 rss_fn=lambda: 0)
