@@ -26,6 +26,21 @@ virtual clock, the ladder, idle-key eviction on the card against the CPU
 twin, and the keyspace through a checkpoint. Each prints its times
 (lock held, save, load, CRC rate; head step; lock held per sweep).
 
+The ingest path follows, as a deployment runs it: the native OTLP
+decoder (``csrc/host/ingest.cc``, built with the host compiler beside the
+kernels) must give the Python decoder's columns bit for bit on the e2e
+bodies; each e2e leg runs again through ``decode_otlp_many`` →
+``submit_columnar`` → the device-put spine → the async harvester,
+against a twin with the spine off and synchronous harvest (final states
+bit-identical, the same flags, one launch a batch), and once more under
+``torch.profiler`` for the card's busy share of that run's wall; a spin
+kernel ahead of each step then queues the spine's copies behind running
+steps, at ring depths 1 and 2, and the state must still equal the spine
+off's bit for bit; overloadbench runs
+at five times the B = 2048 native leg's span rate (error-lane shed 0,
+rows conserved, brownout engaged and relaxed) and lagbench at its
+default rate (p99 under 100 ms).
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -57,6 +72,7 @@ limit. The build log goes to ``chiprun_out/chip_smoke_build.log``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -249,11 +265,22 @@ def fused_bound_bytes(lanes, cfg) -> int:
 
 
 def phase_build():
+    import threading
+
     from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import native
 
     t0 = time.perf_counter()
+    # The host decoder's g++ runs beside the kernels' nvcc builds.
+    host_s = {}
+    host = threading.Thread(target=lambda: host_s.setdefault(
+        "s", (native.available(), time.perf_counter() - t0)[1]))
+    host.start()
     paths = _kernels.build_all()
     build_s = time.perf_counter() - t0
+    host.join()
+    check(native.available(), f"the native OTLP decoder did not build: {native.load_error()}")
+    print(f"build: native OTLP decoder {native.library_path().name} in {host_s['s']:.2f} s")
     OUT_DIR.mkdir(exist_ok=True)
     if _kernels.BUILD_LOG:
         (OUT_DIR / "chip_smoke_build.log").write_text(
@@ -734,6 +761,30 @@ def make_bodies(rng, n_bodies, spans, slow=None):
     return bodies
 
 
+SLOW = 7  # the service the e2e legs slow down ten times
+_E2E_BODIES: dict = {}
+
+
+def e2e_bodies(width, n_warm, n_fault, bodies_per_batch):
+    """``(clean, faulty, spans per body)``: the e2e legs' OTLP bodies,
+    made once per leg shape and shared by the Python and native legs."""
+    key = (width, n_warm, n_fault, bodies_per_batch)
+    if key not in _E2E_BODIES:
+        rng = np.random.default_rng(4)
+        spans = width // bodies_per_batch
+        pool = 8 * bodies_per_batch if width > 8192 else n_warm + n_fault
+        clean = make_bodies(rng, pool, spans)
+        faulty = make_bodies(rng, max(pool // 2, n_fault * bodies_per_batch), spans, slow=SLOW)
+        _E2E_BODIES[key] = (clean, faulty, spans)
+    return _E2E_BODIES[key]
+
+
+def batch_bodies(clean, faulty, k, n_warm, bodies_per_batch):
+    """The bodies of batch ``k``: clean before onset, faulty from it."""
+    src, j = (clean, k) if k < n_warm else (faulty, k - n_warm)
+    return [src[(j * bodies_per_batch + i) % len(src)] for i in range(bodies_per_batch)]
+
+
 def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, results):
     """Warm up on clean traffic, then a ×10 latency step on one service:
     it must flag, and nothing may flag before onset."""
@@ -742,12 +793,8 @@ def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, res
     from opentelemetry_demo_tpu_torch.runtime.otlp import decode_export_request
     from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
 
-    rng = np.random.default_rng(4)
-    slow = 7
-    spans = width // bodies_per_batch
-    pool = 8 * bodies_per_batch if width > 8192 else n_warm + n_fault
-    clean = make_bodies(rng, pool, spans)
-    faulty = make_bodies(rng, max(pool // 2, n_fault * bodies_per_batch), spans, slow=slow)
+    slow = SLOW
+    clean, faulty, spans = e2e_bodies(width, n_warm, n_fault, bodies_per_batch)
     cfg = DetectorConfig(sketch_impl=impl)
     reports = []
     pipe = DetectorPipeline(
@@ -759,9 +806,7 @@ def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, res
     decode_s = 0.0
     t0 = time.perf_counter()
     for k in range(n_warm + n_fault):
-        src, j = (clean, k) if k < n_warm else (faulty, k - n_warm)
-        for i in range(bodies_per_batch):
-            body = src[(j * bodies_per_batch + i) % len(src)]
+        for body in batch_bodies(clean, faulty, k, n_warm, bodies_per_batch):
             td = time.perf_counter()
             recs = decode_export_request(body)
             decode_s += time.perf_counter() - td
@@ -798,6 +843,315 @@ def phase_end_to_end(device, impl, width, n_warm, n_fault, bodies_per_batch, res
     results[kernel]["launches"] = launches[kernel]
     return dict(width=width, impl=impl, spans_per_s=rate, wall_s=wall, decode_s=decode_s,
                 batches=n_batches, ttd_batches=ttd, launches=launches)
+
+
+# -- the native ingest path ---------------------------------------------------------
+
+
+def decode_threads() -> int:
+    return min(8, os.cpu_count() or 1)
+
+
+def phase_native_decode():
+    """The native decoder (``csrc/host/ingest.cc``, built at first use)
+    against the Python decoder on the e2e legs' bodies: the columns
+    through ``columns_from_columnar`` must equal those through
+    ``columns_from_records`` bit for bit, with the same intern table; a
+    malformed body must raise on both paths. Then decode spans/s and MB/s
+    on one B = 65536 batch (8 bodies), serial and threaded."""
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.otlp import (
+        MONITORED_ATTR_KEYS,
+        decode_export_request,
+        decode_export_request_columnar,
+    )
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    check(native.available(), f"the native OTLP decoder did not build: {native.load_error()}")
+    threads = decode_threads()
+    compared = 0
+    for width, n_warm, n_fault, per in ((2048, 40, 4, 1), (65536, 24, 3, 8)):
+        clean, faulty, spans = e2e_bodies(width, n_warm, n_fault, per)
+        # Every batch of the B = 2048 leg; the first clean and the first
+        # faulty batch of the B = 65536 leg (the Python decode of all of
+        # them takes half a minute).
+        ks = range(n_warm + n_fault) if width == 2048 else (0, n_warm)
+        tz_nat, tz_py = SpanTensorizer(32, width), SpanTensorizer(32, width)
+        for k in ks:
+            bodies = batch_bodies(clean, faulty, k, n_warm, per)
+            cols, rows = native.decode_otlp_many(bodies, MONITORED_ATTR_KEYS, threads=threads)
+            check(rows.tolist() == [spans] * per, f"native verdicts {rows.tolist()} (B={width}, batch {k})")
+            got = tz_nat.columns_from_columnar(cols)
+            ref = tz_py.columns_from_records([r for b in bodies for r in decode_export_request(b)])
+            same_bits(got, ref, f"native vs Python columns (B={width}, batch {k})")
+            one = tz_nat.columns_from_columnar(decode_export_request_columnar(bodies[0]))
+            same_bits(one, ref.slice(0, spans), f"one-body native decode (B={width}, batch {k})")
+            compared += got.rows
+        check(tz_nat.service_names == tz_py.service_names, f"intern tables differ (B={width})")
+    bad = b"\x0a\xff"  # a truncated length
+    for what, fn in (("native", lambda: native.decode_otlp(bad, MONITORED_ATTR_KEYS)),
+                     ("columnar", lambda: decode_export_request_columnar(bad)),
+                     ("Python", lambda: decode_export_request(bad))):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise RuntimeError(f"chip smoke check failed: a malformed body decoded on the {what} path")
+    _, rows = native.decode_otlp_many([bad, clean[0]], MONITORED_ATTR_KEYS)
+    check(rows.tolist() == [-1, 8192], f"per-body verdicts {rows.tolist()}")
+    bodies = batch_bodies(clean, faulty, 0, 24, 8)
+    n_bytes = sum(len(b) for b in bodies)
+    rates = {}
+    for n_threads in (1, threads):
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            native.decode_otlp_many(bodies, MONITORED_ATTR_KEYS, threads=n_threads)
+            times.append(time.perf_counter() - t0)
+        sec = float(np.median(times))
+        rates[n_threads] = dict(s=sec, spans_per_s=65536 / sec, mb_per_s=n_bytes / sec / 1e6)
+    print(f"native decode == Python decode on {compared} spans (columns and intern tables bit-identical); "
+          f"a malformed body raises on both paths; B=65536 batch ({n_bytes} bytes): "
+          + "; ".join(f"{t} thread(s) {r['s'] * 1e3:.3f} ms = {r['spans_per_s']:.0f} spans/s, "
+                      f"{r['mb_per_s']:.0f} MB/s" for t, r in rates.items()))
+    return dict(compared_spans=compared, batch_bytes=n_bytes, threads=threads,
+                rates={str(t): r for t, r in rates.items()})
+
+
+def phase_native_e2e(device, impl, width, n_warm, n_fault, bodies_per_batch, results):
+    """The e2e leg on the production ingest path: each batch's bodies
+    through ``decode_otlp_many`` into a reused scratch, then
+    ``submit_columnar(copy=True)``, into a pipeline with the device-put
+    spine (two slots) and the async harvester; beside it a twin with the
+    spine off and synchronous harvest. The two final states must be
+    bit-identical and every report the async run read must equal the
+    twin's; ``service-07`` must flag on the first batch after onset and
+    never before; the kernel must launch once a batch in each run. The
+    kernel table's launch count is the timed spine run's. A last spine
+    run under ``torch.profiler`` gives the card's busy share of its own
+    wall (``device_busy``)."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    clean, faulty, spans = e2e_bodies(width, n_warm, n_fault, bodies_per_batch)
+    cfg = DetectorConfig(sketch_impl=impl)
+    kernel = "fused_update" if impl is None else "cms_hist"
+    n = n_warm + n_fault
+    threads = decode_threads()
+    biggest = max(sum(len(b) for b in batch_bodies(clean, faulty, k, n_warm, bodies_per_batch))
+                  for k in range(n))
+    scratch = native.alloc_scratch(*native.scratch_dims(biggest, bodies_per_batch))
+
+    def run(spine_ring, harvest_async, profile=False):
+        reports = []
+        pipe = DetectorPipeline(
+            AnomalyDetector(cfg, device=device),
+            on_report=lambda t, rep, names: reports.append((t, rep, names)),
+            batch_size=width, spine_ring=spine_ring, harvest_async=harvest_async,
+        )
+        _kernels.reset_launches()
+        decode_s = tensorize_s = 0.0
+        prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA])
+                if profile else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()
+            for k in range(n):
+                bodies = batch_bodies(clean, faulty, k, n_warm, bodies_per_batch)
+                td = time.perf_counter()
+                cols, rows = native.decode_otlp_many(bodies, MONITORED_ATTR_KEYS, scratch=scratch,
+                                                     threads=threads)
+                tt = time.perf_counter()
+                decode_s += tt - td
+                check(rows.tolist() == [spans] * bodies_per_batch, f"native verdicts {rows.tolist()}")
+                pipe.submit_columnar(cols, copy=True)  # the scratch is reused next batch
+                tensorize_s += time.perf_counter() - tt
+                pipe.pump(k * DT_S)
+            pipe.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        pipe.close()
+        check(pipe.stats.batches == n and pipe.stats.spans == n * width,
+              f"dispatched {pipe.stats.batches} batches, {pipe.stats.spans} spans")
+        check(launches[kernel] == n, f"{kernel} launched {launches[kernel]} times in {n} batches")
+        reports.sort(key=lambda r: r[0])
+        check(len(reports) + pipe.stats.reports_skipped == n,
+              f"{len(reports)} reports read + {pipe.stats.reports_skipped} skipped of {n}")
+        out = dict(pipe=pipe, reports=reports, wall=wall, decode_s=decode_s, tensorize_s=tensorize_s,
+                   launches=launches[kernel])
+        if profile:
+            out["device"] = device_activity(prof)
+        return out
+
+    # In turns (spine, twin, twin, spine): the first run of a width pays
+    # its first-use costs; the times kept are each one's second run.
+    first, twin0, twin, spine = run(2, True), run(0, False), run(0, False), run(2, True)
+    # Each half alone, to split the cost: the spine with synchronous
+    # harvest, and the async harvester with the spine off.
+    spine_sync, async_only = run(2, False), run(0, True)
+    traced = run(2, True, profile=True)
+    busy = traced["device"]
+    check(busy["ops"] > 0, f"the trace of the native B={width} run saw no device activity")
+    busy["wall_ms"] = traced["wall"] * 1e3
+    busy["share"] = busy["union_ms"] / busy["wall_ms"]
+    busy["spans_per_s"] = n * width / traced["wall"]
+    check(len(twin["reports"]) == n, f"the synchronous twin read {len(twin['reports'])} of {n} reports")
+    ref_state = state_to_numpy(twin["pipe"].detector.state)
+    for leg in (first, twin0, spine, spine_sync, async_only, traced):
+        same_bits(state_to_numpy(leg["pipe"].detector.state), ref_state,
+                  f"spine + async harvest vs spine off + sync harvest (B={width})")
+    by_t = {t: (rep, names) for t, rep, names in twin["reports"]}
+    for t, rep, names in first["reports"] + spine["reports"]:
+        same_bits(rep, by_t[t][0], f"report at t={t} (B={width})")
+        check(names == by_t[t][1], f"flags at t={t}: {names} vs {by_t[t][1]}")
+    target = f"service-{SLOW:02d}"
+    onset = n_warm * DT_S
+    for leg in (first, spine, twin):
+        before = [names for t, _, names in leg["reports"] if t < onset and names]
+        check(not before, f"flags before onset: {before[:3]}")
+        at_onset = [names for t, _, names in leg["reports"] if t == onset]
+        check(at_onset == [[target]], f"the first batch after onset flags {at_onset}, not [{target}]")
+    pipe = spine["pipe"]
+    st = pipe.spine_stats()
+    rate = n * width / spine["wall"]
+    rec = dict(width=width, impl=impl, batches=n, spans_per_s=rate, wall_s=spine["wall"],
+               decode_s=spine["decode_s"], tensorize_s=spine["tensorize_s"],
+               lag_p99_ms=pipe.stats.lag_p99_ms(), reports_skipped=pipe.stats.reports_skipped,
+               spine=st, launches=spine["launches"], decode_threads=threads,
+               device_busy_share=busy["share"], device_busy=busy,
+               first_run=dict(spans_per_s=n * width / first["wall"], lag_p99_ms=first["pipe"].stats.lag_p99_ms()),
+               halves={name: dict(spans_per_s=n * width / leg["wall"], lag_p99_ms=leg["pipe"].stats.lag_p99_ms())
+                       for name, leg in (("spine_sync_harvest", spine_sync), ("async_harvest_no_spine", async_only))},
+               twin=dict(spans_per_s=n * width / twin["wall"], wall_s=twin["wall"],
+                         decode_s=twin["decode_s"], tensorize_s=twin["tensorize_s"],
+                         lag_p99_ms=twin["pipe"].stats.lag_p99_ms()))
+    print(f"native e2e B={width} impl={impl}: {n} batches in {spine['wall']:.3f} s = {rate:.0f} spans/s "
+          f"(decode {spine['decode_s']:.3f} s with {threads} threads, tensorize {spine['tensorize_s']:.3f} s), "
+          f"lag p99 {rec['lag_p99_ms']:.3f} ms; spine puts {st['puts_total']}, overlap hits "
+          f"{st['overlap_hits']} misses {st['overlap_misses']} (stager {st['stage_s']:.3f} s, pump waited "
+          f"{st['take_wait_s']:.3f} s); reports skipped {pipe.stats.reports_skipped}; "
+          f"{kernel} launches {spine['launches']}; state == the spine-off sync twin's "
+          f"({rec['twin']['spans_per_s']:.0f} spans/s, lag p99 {rec['twin']['lag_p99_ms']:.3f} ms); "
+          f"{target} flagged on the first batch after onset; the first run of each: "
+          f"{rec['first_run']['spans_per_s']:.0f} spans/s, lag p99 {rec['first_run']['lag_p99_ms']:.3f} ms "
+          f"(spine), {n * width / twin0['wall']:.0f} spans/s (twin); each half alone: "
+          + "; ".join(f"{k} {v['spans_per_s']:.0f} spans/s, lag p99 {v['lag_p99_ms']:.3f} ms"
+                      for k, v in rec["halves"].items()))
+    print(f"  device busy share of a traced spine + async run (B={width}): {busy['share']:.6f} "
+          f"({busy['union_ms']:.4f} ms of device activity, {busy['sum_ms']:.4f} ms summed over "
+          f"{busy['ops']} kernels and copies, in {busy['wall_ms']:.3f} ms of wall; "
+          f"{busy['spans_per_s']:.0f} spans/s under the profiler)")
+    results[kernel]["launches"] = spine["launches"]
+    return rec
+
+
+def phase_spine_guard(device, width=2048, n=16, spin_cycles=40_000_000):
+    """The spine's second guard under load: a spin kernel (~20 ms) queued
+    on the dispatch stream ahead of each step keeps step k running while
+    the stager issues the copy for batch k + depth into the same device
+    slot. Without the side stream's wait on the step's event that copy
+    would overwrite lanes step k has yet to read. At ring depths 1 and 2,
+    with the async harvester, the final state must equal a spine-off
+    run's bit for bit, and the spine must have queued copies behind a
+    running step (``step_waits``: the guard was exercised)."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    rng = np.random.default_rng(21)
+    chunks = [make_columns(rng, width) for _ in range(n)]
+
+    def run(spine_ring):
+        det = AnomalyDetector(DetectorConfig(), device=device)
+        if spine_ring:
+            step = det.observe_staged_packed
+
+            def slow_step(lanes, t_now):
+                torch.cuda._sleep(spin_cycles)
+                return step(lanes, t_now)
+
+            det.observe_staged_packed = slow_step
+        pipe = DetectorPipeline(det, batch_size=width, spine_ring=spine_ring, harvest_async=bool(spine_ring))
+        for k, cols in enumerate(chunks):
+            pipe.submit_columns(cols)
+            pipe.pump(k * DT_S)
+        pipe.close()
+        torch.cuda.synchronize()
+        check(pipe.stats.batches == n, f"guard run dispatched {pipe.stats.batches} of {n}")
+        return det, pipe
+
+    ref = state_to_numpy(run(0)[0].state)
+    out = {}
+    for depth in (1, 2):
+        det, pipe = run(depth)
+        same_bits(state_to_numpy(det.state), ref, f"spine depth {depth} with a busy card vs spine off")
+        st = pipe.spine_stats()
+        check(st["step_waits"] > 0, f"depth {depth}: no copy was queued behind a running step")
+        out[depth] = dict(reports_skipped=pipe.stats.reports_skipped, spine=st)
+        print(f"spine guard, depth {depth}, B={width}, {n} batches with ~20 ms of spin ahead of each step: "
+              f"state == spine off; copies queued behind a running step {st['step_waits']} of "
+              f"{st['puts_total']}; reports skipped {pipe.stats.reports_skipped}; overlap hits "
+              f"{st['overlap_hits']} misses {st['overlap_misses']}")
+    return out
+
+
+def device_activity(prof) -> dict:
+    """The device work in a ``torch.profiler`` window: kernels, copies
+    and memsets on every stream, as their count, their summed time and
+    the time covered by their union (two streams at once count once)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    union_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union_us += b - max(a, end)
+            end = b
+    return dict(ops=len(spans), sum_ms=sum(b - a for a, b in spans) / 1e3, union_ms=union_us / 1e3)
+
+
+def phase_overload(device, rate):
+    """The port's overloadbench on the card at 5× the span rate the
+    B = 2048 native leg sustained: error-lane shed 0, every fed row
+    accounted for, brownout engaged under load and relaxed after."""
+    from opentelemetry_demo_tpu_torch.runtime.overloadbench import measure_overload
+
+    batch = 2048
+    out = measure_overload(over_factor=5.0, seconds=3.0, batch=batch, queue_max_rows=8 * batch,
+                           brownout_hold_s=0.25, error_fraction=0.02, pump_interval_s=batch / rate,
+                           device=device)
+    check(out["shed_error_rows"] == 0, f"{out['shed_error_rows']} error-lane rows shed")
+    check(out["conserved"], f"rows not conserved: {out}")
+    check(out["saturation_events"] >= 1 and out["max_pending_rows"] <= out["queue_max_rows"], f"{out}")
+    check(out["brownout_max_level"] >= 1, f"brownout never engaged: {out}")
+    check(out["recovery_s"] is not None, f"brownout never relaxed: {out}")
+    out["pump_interval_s"] = batch / rate
+    print(f"overload at 5x {rate:.0f} spans/s (B={batch}, one dispatch per {batch / rate * 1e3:.3f} ms): "
+          f"fed {out['fed_rows']} rows, shed ok {out['shed_ok_rows']} / error {out['shed_error_rows']}, "
+          f"brownout {out['brownout_rows']} rows up to level {out['brownout_max_level']}, dispatched "
+          f"{out['dispatched_rows']} (conserved), recovered in {out['recovery_s']} s, lag p99 "
+          f"{out['lag_p99_ms']} ms")
+    return out
+
+
+def phase_lag(device):
+    """The port's lagbench on the card at its default rate: p99
+    submit→harvest lag under the 100 ms budget."""
+    from opentelemetry_demo_tpu_torch.runtime.lagbench import BASELINE_LAG_MS, measure_lag
+
+    out = measure_lag(device=device)
+    check(out["p99_ms"] < BASELINE_LAG_MS, f"lag p99 {out['p99_ms']} ms")
+    print(f"lag at {out['rate']:.0f} spans/s (B=256): p99 {out['p99_ms']} ms over {out['batches']} batches, "
+          f"net of the report copy's round trip p99 {out.get('p99_net_ms')} ms (RTT p50 "
+          f"{out.get('rtt_p50_ms')} ms), reports skipped {out['reports_skipped']}")
+    return out
 
 
 # -- the state that outlives a batch ------------------------------------------------
@@ -1464,6 +1818,14 @@ def main() -> int:
         print(f"  device operations per step (B={leg['width']} impl={leg['impl']}, "
               f"{sum(v['per_call'] for _, v in ops):g} in all, {sum(v['ms'] for _, v in ops):.5f} ms): "
               f"{show_breakdown(dict(ops))}")
+    native_rec = dict(decode=phase_native_decode())
+    native_rec["e2e"] = [
+        phase_native_e2e(device, None, 2048, n_warm=40, n_fault=4, bodies_per_batch=1, results=results),
+        phase_native_e2e(device, "xla", 65536, n_warm=24, n_fault=3, bodies_per_batch=8, results=results),
+    ]
+    native_rec["spine_guard"] = phase_spine_guard(device)
+    native_rec["overload"] = phase_overload(device, native_rec["e2e"][0]["spans_per_s"])
+    native_rec["lag"] = phase_lag(device)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -1492,7 +1854,8 @@ def main() -> int:
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "state": state, "mesh": mesh,
+        {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
+         "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -419,6 +419,28 @@ def detector_step(
     return state, report
 
 
+def step_args(lanes: torch.Tensor, tail: torch.Tensor) -> tuple:
+    """:func:`detector_step`'s batch arguments from one int32 tensor of
+    8 × B lanes (svc, lat_us, is_error, trace hi/lo, attr hi/lo, valid;
+    the floats as their bits, ``valid`` as 0/1) and a tail of ``dt``'s
+    bits and the rotate mask."""
+    b = lanes.shape[0] // 8
+    lane = [lanes[i * b:(i + 1) * b] for i in range(8)]
+    f32 = torch.float32
+    return (
+        lane[0],
+        lane[1].view(f32),
+        lane[2].view(f32),
+        lane[3],
+        lane[4],
+        lane[5],
+        lane[6],
+        lane[7] != 0,
+        tail[0:1].view(f32).reshape(()),
+        tail[1:] != 0,
+    )
+
+
 class AnomalyDetector:
     """Host-side driver: owns the state, the window clock and the device.
 
@@ -444,6 +466,11 @@ class AnomalyDetector:
 
     def _args(self, batch: TensorBatch, t_now: float) -> tuple:
         dt, rotate = self.clock.tick(t_now)
+        return self.pack_args(batch, dt, rotate)
+
+    def pack_args(self, batch: TensorBatch, dt: float, rotate: np.ndarray) -> tuple:
+        """Step arguments for ``batch`` with the given ``dt`` and rotate
+        mask (no clock tick): one pinned buffer, one copy."""
         b = batch.batch_size
         n = 8 * b + 1 + rotate.shape[0]
         cuda = self.device.type == "cuda"
@@ -456,20 +483,22 @@ class AnomalyDetector:
         host[8 * b] = np.float32(dt).view(np.int32)
         host[8 * b + 1:] = rotate
         dev = buf.to(self.device, non_blocking=True) if cuda else buf
-        lanes = [dev[i * b:(i + 1) * b] for i in range(8)]
-        f32 = torch.float32
-        return (
-            lanes[0],
-            lanes[1].view(f32),
-            lanes[2].view(f32),
-            lanes[3],
-            lanes[4],
-            lanes[5],
-            lanes[6],
-            lanes[7] != 0,
-            dev[8 * b:8 * b + 1].view(f32).reshape(()),
-            dev[8 * b + 1:] != 0,
-        )
+        return step_args(dev[:8 * b], dev[8 * b:])
+
+    def staged_args(self, lanes: torch.Tensor, t_now: float) -> tuple:
+        """Step arguments from a batch already on the device: ``lanes`` is
+        one int32 tensor of 8 × B laid out as :meth:`_args` lays out a
+        batch (a spine ring slot). The window clock ticks here, at
+        dispatch, and only ``dt`` and the rotate mask are copied, so the
+        state advances exactly as on the inline path."""
+        dt, rotate = self.clock.tick(t_now)
+        cuda = self.device.type == "cuda"
+        buf = torch.empty(1 + rotate.shape[0], dtype=torch.int32, pin_memory=cuda)
+        host = buf.numpy()
+        host[0] = np.float32(dt).view(np.int32)
+        host[1:] = rotate
+        tail = buf.to(self.device, non_blocking=True) if cuda else buf
+        return step_args(lanes, tail)
 
     def observe(self, batch: TensorBatch, t_now: float) -> DetectorReport:
         self.state, report = detector_step(
@@ -481,6 +510,15 @@ class AnomalyDetector:
         """Like :meth:`observe`, with the report as one flat device
         vector (:func:`report_unpack` restores it on the host)."""
         return report_pack(self.observe(batch, t_now))
+
+    def observe_staged_packed(self, lanes: torch.Tensor, t_now: float) -> torch.Tensor:
+        """:meth:`observe_packed` for a batch staged on the device
+        (:meth:`staged_args`). The caller orders the step after the
+        lanes' copy on the stream it dispatches on."""
+        self.state, report = detector_step(
+            self.config, self.state, *self.staged_args(lanes, t_now)
+        )
+        return report_pack(report)
 
     def flagged_services(self, report: DetectorReport, names: list[str]) -> list[str]:
         mask = np.asarray(

@@ -32,7 +32,10 @@ compiled with the host C++ compiler at first use into
 exists the portable table loop below computes the same bits, about a
 hundred times slower; :func:`crc_backend` says which one runs.
 
-The span-column frames of the ingest pool arrive with the ingest slice.
+The span profile (:data:`SPAN_COLUMNS`, :func:`encode_spans`,
+:func:`decode_spans`) frames the native decoder's columns, and
+:func:`span_column_crcs` / :func:`verify_span_columns` certify decode
+scratch views in place; both are the reference's bytes.
 """
 
 from __future__ import annotations
@@ -548,3 +551,64 @@ def decode_arrays(blob: bytes, verify: bool | None = None) -> dict[str, np.ndarr
     if kind == "npz":
         return read_npz(blob)
     raise FrameCorrupt(f"payload is neither frame nor npz ({blob[:4]!r})")
+
+
+# -- the ingest span profile -------------------------------------------
+
+# The decode-scratch column set (native.ColumnarSpans without the
+# services list, which rides in meta), so the schema hash is a constant
+# both ends pin.
+SPAN_COLUMNS: tuple[tuple[str, str], ...] = (
+    ("duration_us", "<f4"),
+    ("trace_key", "<u8"),
+    ("is_error", "|u1"),
+    ("attr_crc", "<u4"),
+    ("attr_present", "|u1"),
+    ("svc_idx", "<i4"),
+    ("event_count", "<i4"),
+    ("has_exception", "|u1"),
+)
+SPAN_SCHEMA = schema_hash([(n, np.dtype(t).str, 1) for n, t in SPAN_COLUMNS])
+
+
+def span_column_crcs(cols) -> dict[str, int]:
+    """Per-column CRC32Cs over a ColumnarSpans' memory (scratch views
+    included): taken when a decode finishes, re-checked by
+    :func:`verify_span_columns` before the scratch is reused."""
+    return {
+        name: crc32c(np.ascontiguousarray(getattr(cols, name)))
+        for name, _t in SPAN_COLUMNS
+    }
+
+
+def verify_span_columns(cols, crcs: dict[str, int]) -> list[str]:
+    """Names of columns whose memory no longer matches ``crcs`` (empty:
+    intact)."""
+    return [
+        name
+        for name, _t in SPAN_COLUMNS
+        if crc32c(np.ascontiguousarray(getattr(cols, name))) != int(crcs[name])
+    ]
+
+
+def encode_spans(cols, version: int | None = None) -> bytes:
+    """native.ColumnarSpans → one frame (the service list in meta)."""
+    arrays = {
+        name: np.asarray(getattr(cols, name)).astype(np.dtype(t), copy=False)
+        for name, t in SPAN_COLUMNS
+    }
+    return encode(arrays, meta={"services": list(cols.services)}, version=version)
+
+
+def decode_spans(buf: bytes, verify: bool | None = None):
+    """Frame → native.ColumnarSpans (verified, zero-copy views)."""
+    from .native import ColumnarSpans
+
+    f = decode(buf, verify=verify, expect_schema=SPAN_SCHEMA)
+    missing = [n for n, _t in SPAN_COLUMNS if n not in f.arrays]
+    if missing:
+        raise FrameError(f"span frame missing columns {missing}")
+    return ColumnarSpans(
+        *(f.arrays[n] for n, _t in SPAN_COLUMNS),
+        services=[s if s is None else str(s) for s in f.meta.get("services", [])],
+    )

@@ -3,6 +3,10 @@
 ``decode_export_request`` reads ``ExportTraceServiceRequest`` protobuf
 (``application/x-protobuf``) with the schema projection below;
 ``decode_export_request_json`` reads the JSON encoding.
+``decode_export_request_columnar`` is the native decoder
+(``runtime.native``) on one body: columns for
+``DetectorPipeline.submit_columnar``. The record decoders are its plain
+version (same columns, same verdicts) and the JSON path's decoder.
 ``encode_export_request`` is the protobuf inverse over the fields this
 package carries (fixtures and the chip smoke run). The HTTP receiver
 arrives with a later slice.
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import json
 
-from . import wire
+from . import native, wire
 from .tensorize import SpanEvent, SpanRecord
 
 _STATUS_ERROR = 2  # opentelemetry.proto.trace.v1.Status.StatusCode.ERROR
@@ -124,6 +128,15 @@ def _decode_span(span_buf: bytes, service: str) -> SpanRecord:
         name=name_raw.decode("utf-8", "replace") if isinstance(name_raw, bytes) else None,
         events=tuple(_decode_event(ev_buf, start) for ev_buf in sp.get(11, [])),
     )
+
+
+def decode_export_request_columnar(payload: bytes) -> native.ColumnarSpans:
+    """Protobuf request → native columnar batch (feed it to
+    ``DetectorPipeline.submit_columnar``). There is no fallback: when the
+    native library cannot load this raises with its build error."""
+    if not native.available():
+        raise RuntimeError(f"native OTLP decoder unavailable: {native.load_error()}")
+    return native.decode_otlp(payload, MONITORED_ATTR_KEYS)
 
 
 def decode_export_request_json(payload: bytes) -> list[SpanRecord]:

@@ -19,8 +19,15 @@ in one copy and reinterprets the hash lanes as ``int32``.
 The intern table is bounded and has a key lifecycle (driven by
 ``runtime.keyspace``): ids of idle keys retire into a free list behind a
 generation bump and are reused lowest first, and a new-key gate lets the
-keyspace ladder park new keys in the overflow bucket. The per-worker
-intern arenas of the reference arrive with the ingest-pool slice.
+keyspace ladder park new keys in the overflow bucket. An
+:class:`InternArena` caches ids for one decode worker and drops its cache
+when the generation moves.
+
+Both decode paths produce :class:`SpanColumns`: the per-record Python
+loop (``columns_from_records``) and the native decoder's columns
+(``columns_from_columnar``), bit for bit. ``pack_columns_into`` packs
+into preallocated arrays (a spine ring slot) with the bits of
+``pack_columns``.
 """
 
 from __future__ import annotations
@@ -91,6 +98,11 @@ class SpanColumns(NamedTuple):
     def slice(self, start: int, stop: int) -> "SpanColumns":
         return SpanColumns(*(a[start:stop] for a in self))
 
+    def compress(self, keep: np.ndarray) -> "SpanColumns":
+        """Rows where ``keep`` (bool mask) is True, order preserved — the
+        shed and brownout paths' row selection."""
+        return SpanColumns(*(a[keep] for a in self))
+
     @staticmethod
     def concat(parts: list["SpanColumns"]) -> "SpanColumns":
         if len(parts) == 1:
@@ -117,6 +129,44 @@ class TensorBatch(NamedTuple):
     @property
     def num_valid(self) -> int:
         return int(self.valid.sum())
+
+
+class InternArena:
+    """Per-worker intern cache over a shared :class:`SpanTensorizer`.
+
+    Lookups resolve against the arena's private dict; only a batch that
+    carries a name this arena has never seen reconciles with the shared
+    table, through one ``intern_many`` call. Ids are global and stay put
+    until the evictor retires them, which bumps the tensorizer's
+    generation: the arena then drops its whole cache, since a cached id
+    may have been recycled to another service.
+    """
+
+    __slots__ = ("_tz", "_local", "_gen")
+
+    def __init__(self, tensorizer: "SpanTensorizer"):
+        self._tz = tensorizer
+        self._local: dict[str, int] = {}
+        self._gen = tensorizer.generation
+
+    def lookup(self, names: list[str]) -> list[int]:
+        """Resolve ``names`` (first-appearance order) to ids."""
+        if self._gen != self._tz.generation:
+            self._local = {}
+            self._gen = self._tz.generation
+        local = self._local
+        try:
+            return [local[n] for n in names]
+        except KeyError:
+            pass
+        ids = self._tz.intern_many(names)
+        ov = self._tz.num_services - 1
+        for n, sid in zip(names, ids):
+            # Never cache the overflow id: a key parked there must ask
+            # the shared table again once a slot frees.
+            if sid != ov:
+                local[n] = sid
+        return ids
 
 
 @dataclass
@@ -313,12 +363,109 @@ class SpanTensorizer:
         )
         return SpanColumns(svc, lat, err, tid, crc)
 
+    def columns_from_columnar(
+        self, cols, copy: bool = False, arena: InternArena | None = None
+    ) -> SpanColumns:
+        """Adopt a native-decoder batch (``runtime.native.ColumnarSpans``).
+
+        Interns the batch's service names (``None``, a resource without
+        service.name, becomes the record decoder's "unknown"; an empty
+        name interns as ``""``) and maps the per-row resource indices
+        through. Only names some span references are interned, in
+        first-appearance order (``svc_idx`` is monotone in document
+        order), so ids equal the record path's. ``arena`` resolves names
+        against a worker's own cache first; ids are the same either way.
+
+        ``copy=True`` makes every lane own its memory: required when
+        ``cols`` are views into a decode scratch that the next decode
+        will overwrite.
+        """
+        ids = np.zeros(max(len(cols.services), 1), np.int32)
+        seen = np.zeros(max(len(cols.services), 1), bool)
+        seen[cols.svc_idx] = True
+        live = np.nonzero(seen)[0]
+        if arena is not None:
+            names = ["unknown" if cols.services[i] is None else cols.services[i] for i in live]
+            ids[live] = arena.lookup(names)
+        else:
+            for i in live:
+                name = cols.services[i]
+                ids[i] = self.service_id("unknown" if name is None else name)
+        return SpanColumns(
+            svc=ids[cols.svc_idx],
+            lat_us=cols.duration_us.astype(np.float32, copy=copy),
+            # The record path's exception-event fold: the decoder flags
+            # spans that carry an exception/error event.
+            is_error=np.maximum(cols.is_error, cols.has_exception).astype(np.float32),
+            trace_key=cols.trace_key.copy() if copy else cols.trace_key,
+            attr_crc=cols.attr_crc.astype(np.uint64),
+        )
+
     def pack_columns(self, cols: SpanColumns, width: int | None = None) -> TensorBatch:
         """Columns → one padded, hashed batch."""
         return self.pack_arrays(
             cols.svc, cols.lat_us, cols.trace_key, cols.is_error, cols.attr_crc,
             width=width,
         )
+
+    def alloc_batch(self, width: int | None = None) -> TensorBatch:
+        """Width-sized host arrays for :meth:`pack_columns_into`."""
+        b = width if width is not None else self.batch_size
+        return TensorBatch(
+            np.zeros(b, np.int32),
+            np.zeros(b, np.float32),
+            np.zeros(b, np.float32),
+            np.zeros(b, np.uint32),
+            np.zeros(b, np.uint32),
+            np.zeros(b, np.uint32),
+            np.zeros(b, np.uint32),
+            np.zeros(b, bool),
+        )
+
+    def pack_columns_into(
+        self, out: TensorBatch, cols: SpanColumns, chunk_rows: int = 0
+    ) -> TensorBatch:
+        """:meth:`pack_columns` into preallocated arrays, bit for bit.
+
+        ``out`` is any eight same-length arrays that take the lanes'
+        values (a spine ring slot holds int32 views of one pinned buffer,
+        its ``valid`` lane as 0/1). Rows are hashed and copied in
+        ``chunk_rows`` blocks (0: one block); the tail is padded as
+        :meth:`pack_arrays` pads it: numeric lanes zero, hash lanes the
+        hash of the zero key, ``valid`` False. No width-sized array is
+        allocated.
+        """
+        n = cols.rows
+        b = out.svc.shape[0]
+        if n > b:
+            raise ValueError(f"chunk of {n} exceeds batch width {b}")
+        step = int(chunk_rows) if chunk_rows and chunk_rows > 0 else max(n, 1)
+        for s0 in range(0, n, step):
+            sl = slice(s0, min(s0 + step, n))
+            out.svc[sl] = cols.svc[sl]
+            out.lat_us[sl] = cols.lat_us[sl]
+            out.is_error[sl] = cols.is_error[sl]
+            key = cols.attr_crc[sl].astype(np.uint64) | (
+                cols.svc[sl].astype(np.uint64) << np.uint64(32)
+            )
+            t_hi, t_lo = split_hi_lo_np(splitmix64_np(cols.trace_key[sl]))
+            a_hi, a_lo = split_hi_lo_np(splitmix64_np(key))
+            out.trace_hi[sl] = t_hi
+            out.trace_lo[sl] = t_lo
+            out.attr_hi[sl] = a_hi
+            out.attr_lo[sl] = a_lo
+            out.valid[sl] = True
+        tail = slice(n, b)
+        out.svc[tail] = 0
+        out.lat_us[tail] = 0.0
+        out.is_error[tail] = 0.0
+        z_hi, z_lo = split_hi_lo_np(splitmix64_np(np.zeros(1, np.uint64)))
+        out.trace_hi[tail] = z_hi[0]
+        out.trace_lo[tail] = z_lo[0]
+        out.attr_hi[tail] = z_hi[0]
+        out.attr_lo[tail] = z_lo[0]
+        out.valid[tail] = False
+        return out
 
     def pack_arrays(
         self,
