@@ -41,6 +41,20 @@ at five times the B = 2048 native leg's span rate (error-lane shed 0,
 rows conserved, brownout engaged and relaxed) and lagbench at its
 default rate (p99 under 100 ms).
 
+The OTLP front doors follow (``phase_doors``): the port's
+``OtlpHttpReceiver`` and native ``FrontDoorServer`` (``csrc/host/frontdoor.cc``,
+built beside the decoder) on 127.0.0.1, in front of an ``IngestPool`` and
+the pipeline. One client POSTs the e2e legs' bodies at B = 2048 and
+65536 and the final state must equal the in-process twin's bit for bit,
+with the same reports and flags. A throughput leg at 65536 runs the
+null-sink ``measure_frontdoor_vs_pool``, then 16 clients through each door
+into the pipeline, as threads of this process and as a process of their
+own: spans/s answered 200, rows conserved, lag p99. Then the verdicts:
+400, 413, chunked, 429 with ``Retry-After`` (a full row budget and a full
+pool queue), metrics into the ``MetricsFeed`` on the card and logs into
+the ``LogStore``. Every leg recycles its decode scratch, finds none
+corrupt and allocates a bounded number.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -271,16 +285,24 @@ def phase_build():
     from opentelemetry_demo_tpu_torch.runtime import native
 
     t0 = time.perf_counter()
-    # The host decoder's g++ runs beside the kernels' nvcc builds.
+    # The host libraries' g++ runs beside the kernels' nvcc builds, one
+    # thread each.
     host_s = {}
-    host = threading.Thread(target=lambda: host_s.setdefault(
-        "s", (native.available(), time.perf_counter() - t0)[1]))
-    host.start()
+    hosts = [
+        threading.Thread(target=lambda name=name, fn=fn: host_s.setdefault(
+            name, (fn(), time.perf_counter() - t0)[1]))
+        for name, fn in (("decoder", native.available), ("frontdoor", native.frontdoor_available))
+    ]
+    for th in hosts:
+        th.start()
     paths = _kernels.build_all()
     build_s = time.perf_counter() - t0
-    host.join()
+    for th in hosts:
+        th.join()
     check(native.available(), f"the native OTLP decoder did not build: {native.load_error()}")
-    print(f"build: native OTLP decoder {native.library_path().name} in {host_s['s']:.2f} s")
+    check(native.frontdoor_available(), f"the native front door did not build: {native.frontdoor_load_error()}")
+    print(f"build: native OTLP decoder {native.library_path().name} in {host_s['decoder']:.2f} s, "
+          f"front door {native.library_path(native.FRONTDOOR_SOURCE).name} in {host_s['frontdoor']:.2f} s")
     OUT_DIR.mkdir(exist_ok=True)
     if _kernels.BUILD_LOG:
         (OUT_DIR / "chip_smoke_build.log").write_text(
@@ -1154,6 +1176,545 @@ def phase_lag(device):
     return out
 
 
+# -- the OTLP front doors -----------------------------------------------------------
+
+
+class DoorClient:
+    """One HTTP client for a door: keep-alive where the server allows it
+    (the front door); the receiver answers HTTP/1.0 and closes, and
+    ``http.client`` then opens a new connection for the next request."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+    def post(self, path: str, body: bytes, ctype: str = "application/x-protobuf"):
+        self.conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+        resp = self.conn.getresponse()
+        resp.read()
+        return resp.status, resp.getheader("Retry-After")
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def raw_request(port: int, data: bytes, timeout: float = 30.0) -> bytes:
+    """Send raw bytes; read until one header-only answer or the close."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        s.sendall(data)
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return buf
+
+
+@contextlib.contextmanager
+def open_door(kind: str, pool, **kw):
+    """The port's ``OtlpHttpReceiver`` (``kind="http"``) or native
+    ``FrontDoorServer`` in front of ``pool``, on 127.0.0.1 port 0;
+    yields the server."""
+    from opentelemetry_demo_tpu_torch.runtime.frontdoor import FrontDoorServer
+    from opentelemetry_demo_tpu_torch.runtime.otlp import OtlpHttpReceiver
+
+    if kind == "http":
+        kw.pop("ticket_timeout_s", None)
+        srv = OtlpHttpReceiver(lambda recs: None, host="127.0.0.1", port=0, on_payload=pool.submit, **kw)
+        srv.start()
+    else:
+        srv = FrontDoorServer(pool, port=0, host="127.0.0.1", **kw)
+    try:
+        yield srv
+    finally:
+        srv.stop()
+
+
+DOORS = ("http", "frontdoor")
+
+
+def scratch_hygiene(st: dict, bound: int, what: str) -> None:
+    """At the end of a leg: parked scratch recycled, none corrupt, and
+    the allocations within ``bound`` (a bound that does not grow with
+    the number of flushes)."""
+    check(st["tickets_recycled"] >= st["tickets_parked"] - st["workers"],
+          f"{what}: {st['tickets_recycled']} of {st['tickets_parked']} parked scratches recycled")
+    check(st["corrupt_total"] == 0 and st["frames_corrupt"] == 0, f"{what}: corrupt scratch {st}")
+    check(st["scratch_allocations"] <= bound,
+          f"{what}: {st['scratch_allocations']} scratch allocations in {st['flushes']} flushes (bound {bound})")
+
+
+def doors_exact(device, impl, width, n_warm, n_fault, per, results):
+    """The e2e bodies and batch schedule POSTed to ``/v1/traces`` by one
+    client, through each door into one ``IngestPool`` (one worker) in
+    front of a spine + async-harvester pipeline, pumped after every body
+    of a batch was answered 200. The final state must equal the
+    in-process ``submit_columnar`` twin's bit for bit, every report the
+    door's run read must equal the twin's, ``service-07`` must flag on
+    the first batch after onset and never before, and the kernel must
+    launch once a batch."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.ingest_pool import IngestPool
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    clean, faulty, _spans = e2e_bodies(width, n_warm, n_fault, per)
+    cfg = DetectorConfig(sketch_impl=impl)
+    kernel = "fused_update" if impl is None else "cms_hist"
+    n = n_warm + n_fault
+
+    def new_pipe(spine: bool):
+        reports = []
+        pipe = DetectorPipeline(
+            AnomalyDetector(cfg, device=device),
+            on_report=lambda t, rep, names: reports.append((t, rep, names)),
+            batch_size=width, spine_ring=2 if spine else 0, harvest_async=spine,
+        )
+        return pipe, reports
+
+    twin, twin_reports = new_pipe(False)
+    for k in range(n):
+        cols, _rows = native.decode_otlp_many(batch_bodies(clean, faulty, k, n_warm, per), MONITORED_ATTR_KEYS)
+        twin.submit_columnar(cols)
+        twin.pump(k * DT_S)
+    twin.close()
+    ref = state_to_numpy(twin.detector.state)
+    by_t = {t: (rep, names) for t, rep, names in twin_reports}
+    check(len(twin_reports) == n, f"the twin read {len(twin_reports)} of {n} reports")
+    target = f"service-{SLOW:02d}"
+    onset = n_warm * DT_S
+    out = {}
+    for kind in DOORS:
+        pipe, reports = new_pipe(True)
+        pool = IngestPool(pipe.submit_columns, pipe.tensorizer, workers=1)
+        alloc_mid = None
+        with open_door(kind, pool) as srv:
+            client = DoorClient(srv.port)
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            for k in range(n):
+                for body in batch_bodies(clean, faulty, k, n_warm, per):
+                    status, _ = client.post("/v1/traces", body)
+                    check(status == 200, f"{kind} B={width}: batch {k} answered {status}")
+                pipe.pump(k * DT_S)
+                if k == n // 2:
+                    alloc_mid = pool.stats()["scratch_allocations"]
+            pipe.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernels.LAUNCHES[kernel]
+            client.close()
+            rejects = dict(srv.rejects)
+        pool.drain()
+        st = pool.stats()
+        pipe.close()
+        pool.close()
+        what = f"{kind} door B={width}"
+        check(launches == n, f"{what}: {kernel} launched {launches} times in {n} batches")
+        check(pipe.stats.batches == n and pipe.stats.spans == n * width,
+              f"{what}: dispatched {pipe.stats.batches} batches, {pipe.stats.spans} spans")
+        same_bits(state_to_numpy(pipe.detector.state), ref, f"{what} vs the in-process twin")
+        reports.sort(key=lambda r: r[0])
+        check(len(reports) + pipe.stats.reports_skipped == n, f"{what}: {len(reports)} reports read")
+        for t, rep, names in reports:
+            same_bits(rep, by_t[t][0], f"{what}: report at t={t}")
+            check(names == by_t[t][1], f"{what}: flags at t={t}: {names} vs {by_t[t][1]}")
+        before = [names for t, _, names in reports if t < onset and names]
+        check(not before, f"{what}: flags before onset: {before[:3]}")
+        at_onset = [names for t, _, names in reports if t == onset]
+        check(at_onset == [[target]], f"{what}: the first batch after onset flags {at_onset}, not [{target}]")
+        # A batch's flushes held until its pump, and the batches in the
+        # spine and in flight (one flush each at B = 2048).
+        scratch_hygiene(st, 2 * per + 8, what)
+        check(not rejects, f"{what}: rejects {rejects}")
+        out[kind] = dict(wall_s=wall, spans_per_s=n * width / wall, launches=launches,
+                         lag_p99_ms=pipe.stats.lag_p99_ms(), reports_skipped=pipe.stats.reports_skipped,
+                         allocations_mid=alloc_mid, pool=st)
+        print(f"doors exact B={width} impl={impl}, {kind}: {n} batches of {per} POST(s), one client, one worker: "
+              f"state == in-process twin, reports equal ({len(reports)} read, {pipe.stats.reports_skipped} "
+              f"skipped), {target} flagged on the first batch after onset; {kernel} launches {launches}; "
+              f"{n * width / wall:.0f} spans/s, lag p99 {out[kind]['lag_p99_ms']:.3f} ms; pool flushes "
+              f"{st['flushes']}, scratch parked {st['tickets_parked']} recycled {st['tickets_recycled']} "
+              f"corrupt {st['corrupt_total']}, allocations {alloc_mid} at batch {n // 2} / "
+              f"{st['scratch_allocations']} at the end")
+    results[kernel].setdefault("launches_doors", {})[f"exact_{width}"] = {k: v["launches"] for k, v in out.items()}
+    return out
+
+
+def door_bodies(n_clean=12, n_fault=12, spans=4096):
+    """4096-span OTLP bodies of the e2e services: clean, and with
+    ``service-07`` ten times slower."""
+    rng = np.random.default_rng(12)
+    return make_bodies(rng, n_clean, spans), make_bodies(rng, n_fault, spans, slow=SLOW)
+
+
+def doors_throughput(device, results, width=65536, clients=16, depth=2, workers=2, warm_s=1.0, seconds=3.0):
+    """Throughput at B = 65536 (K2). First the reference's
+    ``measure_frontdoor_vs_pool`` on the clean bodies, null sink: the
+    door's own cost against the in-process pool. Then the same clients
+    through each door into the real pipeline on the card (two workers,
+    spine + async harvester, a row budget of 8 batches with the
+    receivers' Retry-After, a thread pumping), its baselines first
+    learnt from 24 clean batches in process: clean bodies for ``warm_s``,
+    then bodies with ``service-07`` ten times slower. The
+    clients run as the reference's bench runs them, threads of this
+    process, and for the front door again in a process of their own, as
+    a collector is.
+    Spans answered 200 must equal the rows dispatched from the doors +
+    shed + brownout, the CMS row totals of the 60 s window must equal all
+    rows dispatched,
+    and ``service-07`` must flag after onset."""
+    from opentelemetry_demo_tpu_torch.runtime import frontdoorbench as fb
+    from opentelemetry_demo_tpu_torch.runtime.ingest_pool import IngestPool
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    spans = 4096
+    clean, faulty = door_bodies(spans=spans)
+    null = fb.measure_frontdoor_vs_pool(workers=workers, spans_per_request=spans, clients=clients,
+                                        depth=depth, payloads=clean)
+    check(null["requests_ok"] > 0 and not null["client_errors"], f"null-sink front door: {null}")
+    print(f"doors throughput, null sink (measure_frontdoor_vs_pool, {workers} workers, {clients} clients x "
+          f"depth {depth}, {spans}-span bodies): front door {null['frontdoor_spans_per_sec']:.0f} spans/s, "
+          f"in-process pool {null['pool_spans_per_sec']:.0f} spans/s, ratio {null['frontdoor_vs_pool']:.4f}")
+    # The same null-sink door with its clients in a process of their own.
+    pool = IngestPool(lambda cols: None, SpanTensorizer(num_services=32), workers=workers, coalesce_max=64,
+                      max_pending=max(clients * depth * 4, 256))
+    try:
+        with open_door("frontdoor", pool, max_body_bytes=64 << 20, max_conns=clients + 4) as srv:
+            _warm, timed = fb.run_clients_in_child(srv.port, [(clean, 1.0), (clean, seconds)], clients, depth)
+    finally:
+        pool.close()
+    check(timed.get("ok", 0) > 0 and not timed.get("errors"), f"null-sink front door, clients apart: {timed}")
+    null["frontdoor_clients_apart_spans_per_sec"] = timed["ok"] * spans / timed["elapsed"]
+    null["frontdoor_clients_apart_vs_pool"] = null["frontdoor_clients_apart_spans_per_sec"] / null["pool_spans_per_sec"]
+    print(f"  the same front door with its clients in a process of their own: "
+          f"{null['frontdoor_clients_apart_spans_per_sec']:.0f} spans/s, ratio to the pool "
+          f"{null['frontdoor_clients_apart_vs_pool']:.4f}")
+    out = dict(null_sink=null, threads=torch.get_num_threads(), cpus=os.cpu_count())
+    launches = {}
+    # The receiver's 16 handler threads share the server's interpreter
+    # wherever its clients run, so it runs with the clients as threads
+    # only; PERF.md §5 has it measured both ways.
+    for kind, where in (("http", "threads"), ("frontdoor", "threads"), ("frontdoor", "process")):
+        leg = doors_pipeline_leg(device, kind, where, clean, faulty, spans, width, clients, depth, workers,
+                                 warm_s, seconds)
+        out[f"{kind}/{where}"] = leg
+        launches[f"{kind}/{where}"] = leg["launches"]
+    results["cms_hist"].setdefault("launches_doors", {})["throughput"] = launches
+    return out
+
+
+def doors_pipeline_leg(device, kind, where, clean, faulty, spans, width, clients, depth, workers, warm_s, seconds):
+    """One door into the pipeline on the card, clients as threads of
+    this process or in a process of their own (see doors_throughput)."""
+    import threading
+
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import frontdoorbench as fb
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.ingest_pool import IngestPool
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.spine import pinned_device
+
+    cfg = DetectorConfig(sketch_impl="xla")
+    w60 = list(cfg.windows_s).index(max(cfg.windows_s))
+    dev = pinned_device(device)
+    target = f"service-{SLOW:02d}"
+    reports = []
+    pipe = DetectorPipeline(
+        AnomalyDetector(cfg, device=device),
+        on_report=lambda t, rep, names: reports.append((t, names)),
+        batch_size=width, spine_ring=2, harvest_async=True, queue_max_rows=8 * width,
+    )
+    # The detector's baselines first, in process and on a virtual clock,
+    # as the e2e legs warm up: how many batches the doors dispatch in a
+    # few seconds depends on the host, and a cold detector flags nothing.
+    n_pre = 24
+    for k in range(n_pre):
+        bodies = [clean[(k * (width // spans) + i) % len(clean)] for i in range(width // spans)]
+        pipe.submit_columnar(native.decode_otlp_many(bodies, MONITORED_ATTR_KEYS)[0])
+        pipe.pump(k * DT_S)
+    pipe.drain()
+    pre_rows = pipe.stats.spans
+    pool = IngestPool(pipe.submit_columns, pipe.tensorizer, workers=workers, coalesce_max=64,
+                      max_pending=max(clients * depth * 4, 256))
+    stop = threading.Event()
+    t_zero = time.monotonic() - n_pre * DT_S
+
+    def pump_loop():
+        torch.cuda.set_device(dev)
+        last = 0.0
+        while not stop.is_set():
+            now = time.monotonic()
+            if pipe.pending_rows() >= width or now - last >= pipe.max_wait_s:
+                pipe.pump(now - t_zero)
+                last = now
+            else:
+                time.sleep(0.0005)
+
+    pumper = threading.Thread(target=pump_loop, name="doors-pump", daemon=True)
+    _kernels.reset_launches()
+    batches_before = pipe.stats.batches
+    pumper.start()
+    cl_depth = depth if kind == "frontdoor" else 1  # the receiver closes after each answer
+    try:
+        with open_door(kind, pool, retry_after=pipe.admission_retry_after, max_body_bytes=64 << 20) as srv:
+            if where == "threads":
+                warm = fb._run_frontdoor_clients(srv.port, clean, warm_s, clients, cl_depth)
+                timed = fb._run_frontdoor_clients(srv.port, faulty, seconds, clients, cl_depth)
+            else:
+                warm, timed = fb.run_clients_in_child(srv.port, [(clean, warm_s), (faulty, seconds)],
+                                                      clients, cl_depth)
+            rejects = dict(srv.rejects)
+    finally:
+        stop.set()
+        pumper.join(timeout=60)
+    check(not pumper.is_alive(), f"{kind}: the pump thread did not stop")
+    onset = timed["t_start"] - t_zero
+    pool.drain()
+    pipe.drain()
+    torch.cuda.synchronize()
+    pool.drain()
+    launches = _kernels.LAUNCHES["cms_hist"]
+    st = pool.stats()
+    ps = pipe.stats
+    door_rows, door_batches = ps.spans - pre_rows, ps.batches - batches_before
+    ok_spans = (warm.get("ok", 0) + timed.get("ok", 0)) * spans
+    shed = ps.shed_rows["ok"] + ps.shed_rows["error"]
+    cms = pipe.detector.state.cms_bank[w60, :, 0].sum().item()
+    pipe.close()
+    pool.close()
+    what = f"{kind} throughput, clients as {where}"
+    check(not warm.get("errors") and not timed.get("errors"), f"{what}: client errors {warm} {timed}")
+    check(ok_spans == door_rows + shed + ps.brownout_rows,
+          f"{what}: {ok_spans} spans answered 200 != dispatched {door_rows} + shed {shed} + brownout "
+          f"{ps.brownout_rows}")
+    check(int(cms) == ps.spans, f"{what}: the 60 s window's CMS row holds {cms} spans, dispatched {ps.spans}")
+    check(ps.shed_rows["error"] == 0, f"{what}: {ps.shed_rows['error']} error-lane rows shed")
+    check(launches == door_batches and launches > 0, f"{what}: cms_hist launched {launches} in {door_batches} batches")
+    after = [t for t, names in reports if t >= onset and target in names]
+    check(bool(after), f"{what}: {target} never flagged after onset")
+    before = sum(1 for t, names in reports if t < onset and names)
+    # The flushes whose views the pipeline may hold at once: the row
+    # budget's, the spine's two slots' and two reports' in flight.
+    scratch_hygiene(st, (pipe.queue_max_rows + 4 * width) // spans + 2 * workers, what)
+    rate = timed.get("ok", 0) * spans / timed["elapsed"]
+    leg = dict(spans_per_s=rate, ok_requests=timed.get("ok", 0),
+               status={k: v for k, v in timed.items() if k.startswith("status_")},
+               warm_ok=warm.get("ok", 0), dispatched=door_rows, batches=door_batches, shed=shed,
+               brownout=ps.brownout_rows, lag_p99_ms=ps.lag_p99_ms(), launches=launches,
+               reports=len(reports), reports_skipped=ps.reports_skipped, flags_before_onset=before,
+               first_flag_after_onset_s=min(after) - onset if after else None, rejects=rejects, pool=st,
+               client_depth=cl_depth,
+               prewarm_batches=n_pre)
+    print(f"doors throughput into the pipeline on the card, {kind}, clients as {where} ({clients} x depth "
+          f"{cl_depth}, {workers} workers, spine + async, budget {8 * width} rows): {rate:.0f} spans/s answered "
+          f"200 ({timed.get('ok', 0)} requests in {timed['elapsed']:.3f} s; other answers {leg['status']}); "
+          f"dispatched {door_rows} in {door_batches} batches (after {n_pre} in process), shed {shed}, brownout "
+          f"{ps.brownout_rows} (conserved: "
+          f"{ok_spans} answered 200); CMS total == all dispatched; lag p99 {leg['lag_p99_ms']:.3f} ms; cms_hist "
+          f"launches {launches}; pool flushes {st['flushes']}, coalesced requests {st['coalesced_requests']}, "
+          f"scratch allocations {st['scratch_allocations']}; {target} first flagged "
+          f"{leg['first_flag_after_onset_s']} s after onset ({before} flagged reports before); torch "
+          f"threads {torch.get_num_threads()}, cpus {os.cpu_count()}")
+    return leg
+
+
+def log_payload(service: str, n: int, t_ns: int) -> bytes:
+    """An OTLP ExportLogsServiceRequest: ``n`` records of ``service``,
+    severity by number only on every other record."""
+    from opentelemetry_demo_tpu_torch.runtime import wire
+
+    def kv(k, v):
+        return wire.encode_len(1, k.encode()) + wire.encode_len(2, wire.encode_len(1, v.encode()))
+
+    recs = b""
+    for i in range(n):
+        rec = (wire.encode_fixed64(1, t_ns + i) + wire.encode_int(2, 17)
+               + wire.encode_len(5, wire.encode_len(1, f"log line {i}".encode()))
+               + wire.encode_len(6, kv("k", str(i))) + wire.encode_len(9, bytes(range(16))))
+        if i % 2:
+            rec += wire.encode_len(3, b"ERROR")
+        recs += wire.encode_len(2, rec)
+    rl = wire.encode_len(1, wire.encode_len(1, kv("service.name", service))) + wire.encode_len(2, recs)
+    return wire.encode_len(1, rl)
+
+
+def doors_taxonomy(device):
+    """The verdicts on the card, through both doors in front of the
+    pipeline at the default config: a malformed body 400 and the next
+    valid one 200; an oversized body 413; a chunked body refused (front
+    door); a flood into a one-batch row budget 429 with an integer
+    Retry-After and no error-lane row shed; a pool with one pending slot
+    held busy 429 with ``Retry-After: 1``; OTLP metric bodies into the
+    ``MetricsFeed`` (its head steps on the card) and log bodies into the
+    ``LogStore``, counted per index."""
+    from opentelemetry_demo_tpu_torch.runtime.ingest_pool import IngestPool
+    from opentelemetry_demo_tpu_torch.runtime.metrics_feed import MetricsFeed
+    from opentelemetry_demo_tpu_torch.runtime.otlp_metrics import encode_metrics_request
+    from opentelemetry_demo_tpu_torch.telemetry import LogStore
+
+    width = 2048
+    rng = np.random.default_rng(13)
+    valid = make_bodies(rng, 8, width)
+    max_body = 1 << 20
+    store = LogStore()
+    feed = MetricsFeed(device=device)
+    feed.pump(0.0)  # the first pump only sets the timebase
+    out = {}
+    for kind in DOORS:
+        got = {}
+        pipe = default_pipeline(device, width, queue_max_rows=width)
+        pool = IngestPool(pipe.submit_columns, pipe.tensorizer, workers=1)
+        index = f"otel-{kind}"
+        with open_door(kind, pool, retry_after=pipe.admission_retry_after, max_body_bytes=max_body,
+                       on_metric_records=feed.submit,
+                       on_log_records=lambda docs, index=index: [store.add(d, index) for d in docs]) as srv:
+            client = DoorClient(srv.port)
+            got["malformed"] = client.post("/v1/traces", b"\x0a\xff")
+            got["valid_after_malformed"] = client.post("/v1/traces", valid[0])
+            head = (f"POST /v1/traces HTTP/1.1\r\nHost: x\r\nContent-Length: {max_body + 1}\r\n\r\n").encode()
+            got["oversized"] = raw_request(srv.port, head).split(b"\r\n", 1)[0].decode()
+            if kind == "frontdoor":
+                got["chunked"] = raw_request(
+                    srv.port, b"POST /v1/traces HTTP/1.1\r\nHost: x\r\nTransfer-Encoding: chunked\r\n\r\n"
+                    b"4\r\nwxyz\r\n0\r\n\r\n").split(b"\r\n", 1)[0].decode()
+            flood = [client.post("/v1/traces", valid[1 + i % 7]) for i in range(6)]
+            got["flood"] = flood
+            for k in range(3):
+                scrape = [(svc, [(name, value * (k + 1), counter) for name, value, counter in metrics])
+                          for svc, metrics in metric_payload(rng, k)]
+                got[f"metrics_{k}"] = client.post("/v1/metrics", encode_metrics_request(
+                    scrape, t_ns=10**18 + k * 10**10))[0]
+            got["logs"] = [client.post("/v1/logs", log_payload(f"service-{i:02d}", 5, 10**18))[0]
+                           for i in range(4)]
+            client.close()
+            rejects = dict(srv.rejects)
+        pool.drain()
+        shed_error = pipe.stats.shed_rows["error"]
+        pipe.close()
+        pool.close()
+        what = f"{kind} taxonomy"
+        check(got["malformed"][0] == 400 and got["valid_after_malformed"][0] == 200, f"{what}: {got}")
+        check(" 413 " in got["oversized"] + " ", f"{what}: oversized answered {got['oversized']}")
+        if kind == "frontdoor":
+            check(" 400 " in got["chunked"] + " ", f"{what}: chunked answered {got['chunked']}")
+        statuses = [s for s, _ in flood]
+        ra = [r for s, r in flood if s == 429]
+        check(429 in statuses and all(r is not None and r.isdigit() and int(r) >= 1 for r in ra),
+              f"{what}: flood answered {flood}")
+        check(shed_error == 0, f"{what}: {shed_error} error-lane rows shed")
+        check(all(got[f"metrics_{k}"] == 200 for k in range(3)) and got["logs"] == [200] * 4, f"{what}: {got}")
+        check(store.count(index) == 20, f"{what}: {store.count(index)} log records in {index}")
+        check(rejects.get("malformed") == 1 and rejects.get("oversized") == 1 and rejects.get("saturated", 0) >= 1,
+              f"{what}: rejects {rejects}")
+        got["busy_pool"] = busy_pool_429(kind, pipe_width=width, device=device)
+        check(got["busy_pool"] == (429, "1"), f"{what}: a busy one-slot pool answered {got['busy_pool']}")
+        out[kind] = dict(answers=got, rejects=rejects, log_count=store.count(index))
+    report = feed.pump(10.0)
+    check(report is not None and report.flags.is_cuda and bool(torch.isfinite(report.z).all()),
+          "the metrics head did not step on the card" + ("" if report is None else f" ({report.flags.device})"))
+    check(feed.points_total == 2 * 3 * N_SERVICES * 4, f"metric points {feed.points_total}")
+    severities = {d.severity for d in store.search(index="otel-frontdoor", limit=100)}
+    check(severities == {"ERROR"}, f"log severities {severities}")
+    print("doors taxonomy on the card: " + "; ".join(
+        f"{kind}: malformed {v['answers']['malformed'][0]} then valid {v['answers']['valid_after_malformed'][0]}, "
+        f"oversized '{v['answers']['oversized']}', "
+        + (f"chunked '{v['answers']['chunked']}', " if kind == "frontdoor" else "")
+        + f"flood {[s for s, _ in v['answers']['flood']]} Retry-After "
+        f"{sorted({r for s, r in v['answers']['flood'] if s == 429})}, busy one-slot pool "
+        f"{v['answers']['busy_pool']}, {v['log_count']} log records in otel-{kind}, rejects {v['rejects']}"
+        for kind, v in out.items()) + f"; metrics head stepped on {report.flags.device} "
+        f"({feed.points_total} points)")
+    out["metric_points"] = feed.points_total
+    return out
+
+
+def default_pipeline(device, width, **kw):
+    """A pipeline at the default ``DetectorConfig`` on ``device``."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    return DetectorPipeline(AnomalyDetector(DetectorConfig(), device=device), batch_size=width, **kw)
+
+
+def busy_pool_429(kind, pipe_width, device):
+    """A pool with one pending slot whose worker is held in its sink: the
+    third concurrent POST finds the queue full. Returns its answer."""
+    import threading
+
+    from opentelemetry_demo_tpu_torch.runtime.ingest_pool import IngestPool
+
+    rng = np.random.default_rng(14)
+    bodies = make_bodies(rng, 3, 64)
+    pipe = default_pipeline(device, pipe_width)
+    gate = threading.Event()
+    entered = threading.Event()
+
+    def held_sink(cols):
+        entered.set()
+        gate.wait(30)
+        pipe.submit_columns(cols)
+
+    pool = IngestPool(held_sink, pipe.tensorizer, workers=1, max_pending=1)
+    answers = {}
+    try:
+        with open_door(kind, pool, ticket_timeout_s=0.2) as srv:
+            def post(i):
+                c = DoorClient(srv.port)
+                try:
+                    answers[i] = c.post("/v1/traces", bodies[i])
+                finally:
+                    c.close()
+
+            first = threading.Thread(target=post, args=(0,), daemon=True)
+            first.start()
+            check(entered.wait(30), "the held pool never started its flush")
+            second = threading.Thread(target=post, args=(1,), daemon=True)
+            second.start()
+            deadline = time.monotonic() + 30
+            while pool.depth() < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            post(2)
+            gate.set()
+            for th in (first, second):
+                th.join(timeout=30)
+                check(not th.is_alive(), "a held request never got its answer")
+    finally:
+        gate.set()
+        pool.close()
+        pipe.close()
+    check(answers.get(0, (0,))[0] == 200 and answers.get(1, (0,))[0] == 200,
+          f"the held requests answered {answers}")
+    return answers.get(2)
+
+
+def phase_doors(device, results):
+    """The OTLP front doors on the card: the port's ``OtlpHttpReceiver``
+    and native ``FrontDoorServer`` in front of the decode pool and the
+    pipeline at the default config. Order-exact legs at B = 2048 (K1)
+    and 65536 (K2), a throughput leg at 65536, and the verdicts."""
+    t0 = time.perf_counter()
+    out = dict(
+        exact=[doors_exact(device, None, 2048, 40, 4, 1, results),
+               doors_exact(device, "xla", 65536, 24, 3, 8, results)],
+        throughput=doors_throughput(device, results),
+        taxonomy=doors_taxonomy(device),
+    )
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"doors phase: {out['wall_s']:.1f} s")
+    return out
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -1826,6 +2387,7 @@ def main() -> int:
     native_rec["spine_guard"] = phase_spine_guard(device)
     native_rec["overload"] = phase_overload(device, native_rec["e2e"][0]["spans_per_s"])
     native_rec["lag"] = phase_lag(device)
+    doors = phase_doors(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -1850,12 +2412,12 @@ def main() -> int:
             name=name, route=route, source=source, replaces=replaces,
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
-            library_ms=r["library_ms"],
+            library_ms=r["library_ms"], launches_doors=r.get("launches_doors"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
-         "state": state, "mesh": mesh,
+         "doors": doors, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

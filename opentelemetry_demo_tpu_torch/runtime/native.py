@@ -24,6 +24,15 @@ buffers.
 
 Only the span entry points are bound; the orders decoder in the same
 source waits for the Kafka orders source.
+
+The native OTLP/HTTP front door (``csrc/host/frontdoor.cc``) is the
+second library here, built the same way into
+``build/torch_kernels/libfrontdoor_<hash>.so``: an acceptor and one
+thread per connection frame requests natively and hand complete bodies
+to the Python pump (``runtime.frontdoor``) as tickets. Its calls follow
+the same GIL contract; ``otd_fd_next`` blocks with the GIL released.
+There is no fallback for it either: :func:`frontdoor_start` raises with
+the compiler's error.
 """
 
 from __future__ import annotations
@@ -41,11 +50,14 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 INGEST_SOURCE = _PKG / "csrc" / "host" / "ingest.cc"
+FRONTDOOR_SOURCE = _PKG / "csrc" / "host" / "frontdoor.cc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _error: str | None = None
+_fd_lib: ctypes.CDLL | None = None
+_fd_error: str | None = None
 
 
 class ColumnarSpans(NamedTuple):
@@ -68,21 +80,44 @@ class ColumnarSpans(NamedTuple):
     services: list[str | None]
 
 
-def build_command(out: Path) -> list[str]:
-    """The host compiler's command line that builds the decoder into
-    ``out``. ``-pthread``: the batched decode spawns ``std::thread``s."""
+def build_command(out: Path, source: Path = INGEST_SOURCE) -> list[str]:
+    """The host compiler's command line that builds ``source`` (the
+    decoder by default) into ``out``. ``-pthread``: the batched decode
+    spawns ``std::thread``s, and the front door runs a thread per
+    connection."""
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler (g++ or c++) on PATH")
     return [
         cxx, "-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
-        "-shared", "-o", str(out), str(INGEST_SOURCE),
+        "-shared", "-o", str(out), str(source),
     ]
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(INGEST_SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libingest_{key}.so"
+def library_path(source: Path = INGEST_SOURCE) -> Path:
+    """``build/torch_kernels/lib<stem>_<source hash>.so``."""
+    key = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{source.stem}_{key}.so"
+
+
+def _build(source: Path) -> tuple[ctypes.CDLL | None, str | None]:
+    """Build ``source`` once per source version and load it: ``(lib,
+    None)``, or ``(None, why)`` when it cannot build."""
+    path = library_path(source)
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        try:
+            proc = subprocess.run(
+                build_command(tmp, source), capture_output=True, text=True, timeout=300
+            )
+        except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
+            return None, str(e)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            return None, proc.stderr.strip() or f"compiler exited {proc.returncode}"
+        os.replace(tmp, path)
+    return ctypes.CDLL(str(path)), None
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -152,23 +187,10 @@ def _load() -> ctypes.CDLL | None:
     with _lock:
         if _lib is not None or _error is not None:
             return _lib
-        path = library_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-            try:
-                proc = subprocess.run(
-                    build_command(tmp), capture_output=True, text=True, timeout=300
-                )
-            except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
-                _error = str(e)
-                return None
-            if proc.returncode != 0:
-                _error = proc.stderr.strip() or f"compiler exited {proc.returncode}"
-                tmp.unlink(missing_ok=True)
-                return None
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
+        lib, err = _build(INGEST_SOURCE)
+        if lib is None:
+            _error = err
+            return None
         _configure(lib)
         _lib = lib
         return lib
@@ -189,6 +211,179 @@ def _require() -> ctypes.CDLL:
     if lib is None:
         raise RuntimeError(f"native ingest unavailable: {_error}")
     return lib
+
+
+# -- the native front door (csrc/host/frontdoor.cc) ----------------------------
+
+
+def _configure_frontdoor(lib: ctypes.CDLL) -> None:
+    # The acceptor and the per-connection threads live on the C side;
+    # these entry points are the pump's batch drain and verdict
+    # write-back. otd_fd_next blocks with the GIL released (ctypes.CDLL,
+    # the decode calls' contract), so a waiting pump costs the
+    # interpreter nothing.
+    lib.otd_fd_start.restype = ctypes.c_int64
+    lib.otd_fd_start.argtypes = [
+        ctypes.c_char_p,                            # host (IPv4 literal)
+        ctypes.c_int32, ctypes.c_int64,             # port, max_body
+        ctypes.c_int32, ctypes.c_int64,             # max_conns, hdr_timeout
+    ]
+    lib.otd_fd_port.restype = ctypes.c_int32
+    lib.otd_fd_port.argtypes = [ctypes.c_int64]
+    lib.otd_fd_next.restype = ctypes.c_int64
+    lib.otd_fd_next.argtypes = [
+        ctypes.c_int64,                             # handle
+        ctypes.c_void_p, ctypes.c_void_p,           # ids, kinds
+        ctypes.c_void_p, ctypes.c_void_p,           # ptrs, lens
+        ctypes.c_int64, ctypes.c_int64,             # max_n, timeout_ms
+    ]
+    lib.otd_fd_respond.restype = ctypes.c_int32
+    lib.otd_fd_respond.argtypes = [
+        ctypes.c_int64, ctypes.c_int64,             # handle, req id
+        ctypes.c_int32, ctypes.c_int32,             # status, retry_after
+    ]
+    lib.otd_fd_stats.restype = None
+    lib.otd_fd_stats.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    lib.otd_fd_quiesce.restype = None
+    lib.otd_fd_quiesce.argtypes = [ctypes.c_int64]
+    lib.otd_fd_stop.restype = None
+    lib.otd_fd_stop.argtypes = [ctypes.c_int64]
+
+
+def _load_frontdoor() -> ctypes.CDLL | None:
+    """Build (once per source version) and bind the front door; None
+    when it cannot build (``_fd_error`` says why)."""
+    global _fd_lib, _fd_error
+    if _fd_lib is not None or _fd_error is not None:
+        return _fd_lib
+    with _lock:
+        if _fd_lib is not None or _fd_error is not None:
+            return _fd_lib
+        lib, err = _build(FRONTDOOR_SOURCE)
+        if lib is None:
+            _fd_error = err
+            return None
+        _configure_frontdoor(lib)
+        _fd_lib = lib
+        return lib
+
+
+def frontdoor_available() -> bool:
+    return _load_frontdoor() is not None
+
+
+def frontdoor_load_error() -> str | None:
+    """Why the front door is unavailable (None when it loaded)."""
+    _load_frontdoor()
+    return _fd_error
+
+
+def _require_frontdoor() -> ctypes.CDLL:
+    lib = _load_frontdoor()
+    if lib is None:
+        raise RuntimeError(f"native frontdoor unavailable: {_fd_error}")
+    return lib
+
+
+# Signal kinds a front-door ticket carries (frontdoor.cc constants): the
+# pump routes traces to the decode pool's pointer path and metrics/logs
+# (scrape-cadence traffic) to the Python decoders.
+FD_KIND_TRACES = 0
+FD_KIND_METRICS = 1
+FD_KIND_LOGS = 2
+
+# otd_fd_stats slot names, in the order of frontdoor.cc's StatIdx.
+FD_STAT_NAMES = (
+    "accepted", "live_conns", "enqueued", "pending", "bad_length",
+    "oversized", "chunked", "truncated", "disconnect", "overcap",
+    "health", "notfound", "bytes_in", "responded",
+)
+
+
+class FrontDoorBatch(NamedTuple):
+    """Reusable drain buffers for :func:`frontdoor_next`, allocated once
+    per pump: the steady-state drain allocates no numpy array."""
+
+    ids: np.ndarray  # int64[max_n] — ticket ids
+    kinds: np.ndarray  # int32[max_n] — FD_KIND_*
+    ptrs: np.ndarray  # uint64[max_n] — native body addresses
+    lens: np.ndarray  # int64[max_n] — body lengths
+
+
+def frontdoor_alloc_batch(max_n: int) -> FrontDoorBatch:
+    return FrontDoorBatch(
+        np.empty(max_n, np.int64), np.empty(max_n, np.int32),
+        np.empty(max_n, np.uint64), np.empty(max_n, np.int64),
+    )
+
+
+def frontdoor_start(
+    port: int, max_body: int, max_conns: int = 64,
+    header_timeout_ms: int = 10000, host: str = "0.0.0.0",
+) -> int:
+    """Start a native front door on ``host:port`` (port 0: ephemeral);
+    returns the server handle.
+
+    Raises ``RuntimeError`` when the library cannot build (with the
+    compiler's error) or the address cannot be bound: a front door that
+    silently did not bind would leave callers believing it serves.
+    """
+    lib = _require_frontdoor()
+    h = lib.otd_fd_start(
+        host.encode(), int(port), int(max_body), int(max_conns), int(header_timeout_ms)
+    )
+    if h < 0:
+        raise RuntimeError(f"frontdoor bind failed on {host}:{port}")
+    return int(h)
+
+
+def frontdoor_port(handle: int) -> int:
+    return int(_require_frontdoor().otd_fd_port(int(handle)))
+
+
+def frontdoor_next(handle: int, batch: FrontDoorBatch, timeout_ms: int = 100) -> int:
+    """Drain up to ``len(batch.ids)`` complete request tickets into
+    ``batch``, blocking up to ``timeout_ms`` with the GIL released.
+    Returns the count, 0 on timeout, or -1 once the server is stopping
+    and its queue is empty (the pump's exit signal)."""
+    return int(_require_frontdoor().otd_fd_next(
+        int(handle), batch.ids.ctypes.data, batch.kinds.ctypes.data,
+        batch.ptrs.ctypes.data, batch.lens.ctypes.data,
+        batch.ids.shape[0], int(timeout_ms),
+    ))
+
+
+def frontdoor_body(ptr: int, length: int) -> ctypes.Array:
+    """Borrow a ticket's native body as a ctypes view, with no copy:
+    ``len()`` and :func:`decode_otlp_many` both take it. The buffer
+    stays valid until :func:`frontdoor_respond` for its id (the
+    frontdoor.cc ownership rule), so answer only after the decode has
+    consumed the bytes."""
+    return (ctypes.c_char * int(length)).from_address(int(ptr))
+
+
+def frontdoor_respond(handle: int, req_id: int, status: int, retry_after: int = 0) -> None:
+    """Deliver a ticket's verdict: the connection thread writes the
+    canned response and recycles the body buffer."""
+    _require_frontdoor().otd_fd_respond(int(handle), int(req_id), int(status), int(retry_after))
+
+
+def frontdoor_stats(handle: int) -> dict[str, int]:
+    out = np.zeros(len(FD_STAT_NAMES), np.int64)
+    _require_frontdoor().otd_fd_stats(int(handle), out.ctypes.data)
+    return {k: int(v) for k, v in zip(FD_STAT_NAMES, out)}
+
+
+def frontdoor_quiesce(handle: int) -> None:
+    """Graceful drain, phase 1: stop accepting; queued tickets keep
+    flowing to the pump, new requests answer 503."""
+    _require_frontdoor().otd_fd_quiesce(int(handle))
+
+
+def frontdoor_stop(handle: int) -> None:
+    """Full stop: 503 every still-queued ticket, wake the pump
+    (:func:`frontdoor_next` returns -1), join every native thread."""
+    _require_frontdoor().otd_fd_stop(int(handle))
 
 
 # Monitored-key ctypes arrays, cached per key tuple: the key set is a
@@ -329,6 +524,7 @@ def decode_otlp_many(
     scratch: DecodeScratch | None = None,
     threads: int = 0,
     shard_min_bytes: int = SHARD_MIN_BYTES_DEFAULT,
+    phases: dict | None = None,
 ) -> tuple[ColumnarSpans, np.ndarray]:
     """Batched columnar decode: many requests, one foreign call.
 
@@ -340,7 +536,12 @@ def decode_otlp_many(
 
     The extraction pass is sharded across up to ``threads`` native
     threads at span boundaries once the batch holds ``shard_min_bytes``;
-    ``threads<=1`` keeps it serial.
+    ``threads<=1`` keeps it serial. ``phases`` (a dict) receives the
+    two passes' wall seconds as ``{"scan": s, "extract": s}``.
+
+    A payload is ``bytes`` or a ctypes buffer (the front door's borrowed
+    body, :func:`frontdoor_body`), whose address is passed as is: its
+    owner keeps it alive for the call.
 
     With ``scratch`` the returned arrays are views into it; without,
     fresh copies. Raises ``ValueError`` only for an error that poisons
@@ -348,7 +549,9 @@ def decode_otlp_many(
     """
     lib = _require()
     n_payloads = len(payloads)
-    bufs = (ctypes.c_char_p * max(n_payloads, 1))(*payloads)
+    bufs = (ctypes.c_char_p * max(n_payloads, 1))()
+    for i, p in enumerate(payloads):
+        bufs[i] = p if isinstance(p, bytes) else ctypes.cast(p, ctypes.c_char_p)
     lens = (
         np.fromiter(map(len, payloads), np.uint64, count=n_payloads)
         if n_payloads else np.zeros(1, np.uint64)
@@ -356,6 +559,8 @@ def decode_otlp_many(
     total = int(lens.sum()) if n_payloads else 0
     payload_rows = np.empty(max(n_payloads, 1), np.int32)
     keys = _keys_array(attr_keys)
+    scan_s = ctypes.c_double(0.0)
+    extract_s = ctypes.c_double(0.0)
     retried = False
     while True:
         need = scratch_dims(total, n_payloads, retried)
@@ -374,7 +579,7 @@ def decode_otlp_many(
             s.svc_len.ctypes.data, s.rs_cap,
             ctypes.byref(n_services), payload_rows.ctypes.data,
             int(threads), int(shard_min_bytes),
-            None, None,  # no per-pass timings
+            ctypes.byref(scan_s), ctypes.byref(extract_s),
         )
         if n in (-2, -3) and not retried:
             # Tiny spans overflowed the estimated capacity: retry once at
@@ -384,6 +589,9 @@ def decode_otlp_many(
             continue
         if n < 0:
             raise ValueError(f"otlp batch decode failed (code {n})")
+        if phases is not None:
+            phases["scan"] = scan_s.value
+            phases["extract"] = extract_s.value
         services = _service_names(s.svc_buf, s.svc_len[: n_services.value])
         cols = ColumnarSpans(
             s.duration[:n], s.trace[:n], s.err[:n], s.crc[:n],

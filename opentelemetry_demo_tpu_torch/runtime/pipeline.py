@@ -866,6 +866,9 @@ class DetectorPipeline:
                 # not kill the only consumer of _inflight.
                 self.stats.harvest_errors += 1
             finally:
+                # Drop the batch's columns now, not at the next report:
+                # they may view a decode scratch the pool waits to recycle.
+                item = None
                 self._harvest_idle.set()
 
     def _start_rtt_probe(self) -> dict:

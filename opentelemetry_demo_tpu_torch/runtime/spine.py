@@ -363,3 +363,6 @@ class DevicePutSpine:
                 staged.error = e
             finally:
                 staged.ready.set()
+            # Hold no batch between jobs: its columns may view a decode
+            # scratch that the pool recycles once nothing holds it.
+            staged = None
