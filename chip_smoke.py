@@ -55,6 +55,23 @@ pool queue), metrics into the ``MetricsFeed`` on the card and logs into
 the ``LogStore``. Every leg recycles its decode scratch, finds none
 corrupt and allocates a bounded number.
 
+The Kafka orders leg follows (``phase_orders``), with no external
+broker: the port's ``KafkaBroker`` in process with three partitions,
+orders made from a seed, every leg consuming over the socket with
+``OrdersSource``. The live leg (B = 2048, spine, async harvester) feeds
+4,096 orders/s on a virtual clock pumped every 0.1 s; a producer flood
+(each order four times) at 40 s must flag ``checkout-orders`` on its
+first batch and never before; ``anomalyDetectorEnabled`` is switched off
+for five pumps through the flag editor's route (state bit-identical,
+rows conserved) and ``anomalyDetectorZThreshold`` raised for a flood
+second (flags equal a numpy recomputation). The resume leg saves a
+checkpoint with the per-partition offsets and resumes through a new
+source's ``seek``, bit-identical, with a poison pill and a tombstone in
+the stream and an epoch-tagged commit. The backlog leg replays 262,144
+orders at B = 65536 through ``poll_batch`` → ``IngestPool.submit_records``
+against the native ``decode_orders_columnar`` twin, bit-identical, and
+prints the time split.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -1715,6 +1732,534 @@ def phase_doors(device, results):
     return out
 
 
+# -- the Kafka orders leg and the flagd gating ------------------------------------------
+
+# The shop's catalog ids (its checkout publishes them), in popularity order.
+CATALOG = ["TEL-DOB-10", "TEL-REF-80", "EYE-PLO-25", "FIL-OIII-2", "MNT-EQ6-GT",
+           "CAM-ASI-294", "BIN-15X70", "RED-DOT-F", "CHA-ATLAS", "PWR-TANK-12"]
+ORDER_RATE = 4096.0  # orders a second on the live leg's virtual clock
+ORDER_DT = 0.1  # virtual seconds between pumps
+FLOOD_DUP = 4  # kafkaQueueProblems: checkout publishes each order this many times
+BACKLOG = 262_144  # a minute of the baseline rate, and then some
+ORDERS = "checkout-orders"
+
+
+def order_payloads(seed: int, n: int) -> list[bytes]:
+    """``n`` OrderResult payloads from a seed: distinct order ids, one to
+    three lines of Zipf-weighted (s = 1.1) catalog products with
+    quantities 1-5, 60 / 25 / 15 % USD / EUR / JPY, lognormal shipping
+    costs (median USD 8)."""
+    from opentelemetry_demo_tpu_torch.currency_data import to_usd_factor
+    from opentelemetry_demo_tpu_torch.runtime.kafka_orders import encode_order_result
+
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, len(CATALOG) + 1) ** 1.1
+    n_lines = rng.integers(1, 4, n)
+    prods = rng.choice(len(CATALOG), (n, 3), p=w / w.sum())
+    qty = rng.integers(1, 6, (n, 3))
+    codes = np.array(["USD", "EUR", "JPY"])[rng.choice(3, n, p=[0.6, 0.25, 0.15])]
+    factor = {c: to_usd_factor(c) for c in ("USD", "EUR", "JPY")}
+    cost_usd = rng.lognormal(np.log(8.0), 0.5, n)
+    salt = rng.integers(0, 2**48, n)
+    track = rng.integers(0, 2**63, n)
+    out = []
+    for i in range(n):
+        code = str(codes[i])
+        local = float(cost_usd[i]) / factor[code]
+        units = int(local)
+        out.append(encode_order_result(
+            f"{i:08x}-{int(salt[i]):012x}", f"{int(track[i]):016x}",
+            (code, units, int((local - units) * 1e9)),
+            [(CATALOG[prods[i, j]], int(qty[i, j]), None) for j in range(n_lines[i])]))
+    return out
+
+
+def live_pumps(seed: int, clean_s: float, flood_s: float) -> list[list[bytes]]:
+    """The live stream cut into pumps: Poisson arrivals at ORDER_RATE on a
+    virtual clock, the orders of each ORDER_DT in one pump, each order
+    published FLOOD_DUP times from ``clean_s`` on."""
+    n_pumps = int(round((clean_s + flood_s) / ORDER_DT))
+    rng = np.random.default_rng(seed + 1)
+    n = int((clean_s + flood_s) * ORDER_RATE * 1.1) + 64
+    t = np.cumsum(rng.exponential(1.0 / ORDER_RATE, n))
+    n = int(np.searchsorted(t, clean_s + flood_s))
+    payloads = order_payloads(seed, n)
+    pumps = [[] for _ in range(n_pumps)]
+    for i in range(n):
+        pumps[int(t[i] / ORDER_DT)].extend([payloads[i]] * (FLOOD_DUP if t[i] >= clean_s else 1))
+    return pumps
+
+
+class OrderTopic:
+    """The ``orders`` topic of an in-process broker with three
+    partitions; orders go round robin, through ``KafkaBroker.append`` or
+    over the socket through a ``KafkaProducer``."""
+
+    def __init__(self):
+        from opentelemetry_demo_tpu_torch.runtime.kafka_broker import KafkaBroker
+
+        self.broker = KafkaBroker(num_partitions=3)
+        self.broker.start()
+        self.addr = f"127.0.0.1:{self.broker.port}"
+        self.n = self.junk = 0
+        self.by_partition: list[list] = [[], [], []]
+
+    def publish(self, payloads, producer=None) -> None:
+        for p in payloads:
+            part = self.n % 3
+            if producer is None:
+                self.broker.append("orders", p, partition=part)
+            else:
+                producer.send("orders", p, partition=part)
+            self.by_partition[part].append(p)
+            self.n += 1
+
+    def publish_junk(self, value, partition: int) -> None:
+        """A message that is not an order (a poison pill, a tombstone),
+        outside the round robin: the orders around it keep their
+        partitions and their order."""
+        self.broker.append("orders", value, partition=partition)
+        self.by_partition[partition].append(value)
+        self.junk += 1
+
+    def stop(self) -> None:
+        self.broker.stop()
+
+
+def consume(source, sink) -> tuple[dict, int]:
+    """Poll ``source`` until it is caught up; each poll's records go to
+    ``sink`` before its offsets are taken (a checkpoint's offsets must
+    correspond to rows the pipeline holds). Returns (offsets, records)."""
+    offsets, n = {}, 0
+    while True:
+        off, records = source.poll_batch(0.0)
+        if not off:
+            return offsets, n
+        sink(records)
+        n += len(records)
+        offsets.update(off)
+
+
+def flag_doc(enabled: bool = True, threshold: float | None = None) -> dict:
+    """The detector's two flagd flags; ``threshold`` None leaves the
+    config's z-threshold in force."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+
+    thr = DetectorConfig().z_threshold if threshold is None else threshold
+    return {"flags": {
+        "anomalyDetectorEnabled": {"state": "ENABLED", "variants": {"on": True, "off": False},
+                                   "defaultVariant": "on" if enabled else "off"},
+        "anomalyDetectorZThreshold": {"state": "ENABLED", "variants": {"set": thr},
+                                      "defaultVariant": "set"},
+    }}
+
+
+def recomputed_flags(report, cfg, threshold: float) -> np.ndarray:
+    """The flags a report carries at ``threshold``, recomputed in numpy
+    from its z-scores and CUSUM accumulators."""
+    z = np.maximum.reduce([np.abs(getattr(report, f)).max(axis=1)
+                           for f in ("lat_z", "err_z", "rate_z", "card_z")])
+    cusum = (report.cusum > np.asarray(cfg.cusum_thresholds, np.float32)[None, :]).any(axis=1)
+    return (z > threshold) | cusum
+
+
+def max_abs_z(report) -> float:
+    return float(max(np.abs(getattr(report, f)).max() for f in ("lat_z", "err_z", "rate_z", "card_z")))
+
+
+def orders_live(device, clean_s=40.0, flood_s=4.0, off=(8, 13), producer_orders=300):
+    """Flood, verdicts and flags at B = 2048 (K1), with the spine (two
+    slots) and the async harvester. The flag file is rewritten through
+    the flag editor's route and read by the pipeline's ``FlagFileStore``."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.kafka_client import KafkaProducer
+    from opentelemetry_demo_tpu_torch.runtime.kafka_orders import OrdersSource
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import FLAG_ENABLED, FLAG_THRESHOLD, DetectorPipeline
+    from opentelemetry_demo_tpu_torch.utils.flag_ui import FlagEditorUI
+    from opentelemetry_demo_tpu_torch.utils.flags import FlagFileStore, atomic_write_doc
+
+    cfg = DetectorConfig()
+    pumps = live_pumps(81, clean_s, flood_s)
+    onset = int(round(clean_s / ORDER_DT))
+    raise_from, raise_to = onset + 10, onset + 20  # the second flood second
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "flags.json")
+    atomic_write_doc(path, flag_doc())
+    store = FlagFileStore(path)
+    editor = FlagEditorUI(FlagFileStore(path))
+
+    def flip(doc):
+        status, _, body = editor.handle("POST", "/api/write-to-file", json.dumps({"data": doc}).encode())
+        check(status == 200, f"the flag editor answered {status}: {body!r}")
+        want_on = doc["flags"][FLAG_ENABLED]["defaultVariant"] == "on"
+        want_thr = doc["flags"][FLAG_THRESHOLD]["variants"]["set"]
+        check(store.evaluate(FLAG_ENABLED, None) is want_on and store.evaluate(FLAG_THRESHOLD, None) == want_thr,
+              "the pipeline's flag store did not reload the editor's write")
+
+    topic = OrderTopic()
+    producer = KafkaProducer(topic.addr)
+    source = OrdersSource(topic.addr, group_id="live")
+    reports: list = []
+    pipe = DetectorPipeline(AnomalyDetector(cfg, device=device),
+                            on_report=lambda t, rep, names: reports.append((t, rep, names)),
+                            batch_size=2048, spine_ring=2, harvest_async=True, flags=store)
+    fed = sent = 0
+    off_rec: dict = {}
+    raised = None
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for k, payloads in enumerate(pumps):
+        if k == off[0]:
+            flip(flag_doc(enabled=False))
+            before = state_to_numpy(pipe.detector.state)
+            off_rec = dict(spans_at_start=pipe.stats.spans, fed_at_start=fed,
+                           undispatched_at_start=fed - pipe.stats.spans)
+        if k == raise_from:
+            pipe.drain()
+            # Above every |z| of the flood's first second, with margin.
+            raised = 2.0 * max(max_abs_z(rep) for t, rep, _ in reports if t >= onset * ORDER_DT)
+            flip(flag_doc(threshold=raised))
+        if k == raise_to:
+            pipe.drain()
+            flip(flag_doc())
+        via_socket = sent < producer_orders
+        topic.publish(payloads, producer if via_socket else None)
+        sent += len(payloads) if via_socket else 0
+        _, n = consume(source, pipe.submit)
+        fed += n
+        pipe.pump(k * ORDER_DT)
+        if k == onset:
+            pipe.drain()  # the onset's report is read, never skipped
+        if k == off[1] - 1:
+            after = state_to_numpy(pipe.detector.state)
+            same_bits(after, before, "the state across the disabled window")
+            check(pipe.stats.spans == off_rec["spans_at_start"], "a batch was dispatched while disabled")
+            off_rec.update(fed_in_window=fed - off_rec["fed_at_start"], dropped=pipe.stats.dropped_disabled)
+            check(off_rec["dropped"] == fed - off_rec["spans_at_start"],
+                  f"dropped {off_rec['dropped']} rows while off, fed {fed - off_rec['spans_at_start']} "
+                  "undispatched ones")
+            flip(flag_doc())
+    pipe.drain()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["fused_update"]
+    pipe.close()
+    source.close()
+    producer.close()
+    topic.stop()
+    check(fed == topic.n, f"consumed {fed} of {topic.n} orders")
+    check(fed == pipe.stats.spans + pipe.stats.dropped_disabled,
+          f"fed {fed} != dispatched {pipe.stats.spans} + dropped {pipe.stats.dropped_disabled}")
+    check(launches == pipe.stats.batches, f"fused_update launched {launches} times for {pipe.stats.batches} batches")
+    check(len(reports) + pipe.stats.reports_skipped == pipe.stats.batches,
+          f"{len(reports)} reports + {pipe.stats.reports_skipped} skipped != {pipe.stats.batches} batches")
+    t_onset = onset * ORDER_DT
+    before_onset = [(t, names) for t, _, names in reports if t < t_onset and names]
+    check(not before_onset, f"flags before the flood: {before_onset[:3]}")
+    at_onset = [names for t, _, names in reports if t == t_onset]
+    check(at_onset == [[ORDERS]], f"the first batch of the flood flags {at_onset}, not [{ORDERS}]")
+    lo, hi = raise_from * ORDER_DT, raise_to * ORDER_DT
+    in_window = [(t, rep, names) for t, rep, names in reports if lo <= t < hi]
+    check(len(in_window) >= 5, f"{len(in_window)} reports read under the raised threshold")
+    lifted = 0
+    for t, rep, names in in_window:
+        want = recomputed_flags(rep, cfg, raised)
+        check(names == [ORDERS for i in np.nonzero(want)[0]],
+              f"flags at t={t} under threshold {raised}: {names} vs the recomputation {np.nonzero(want)[0]}")
+        lifted += int(rep.flags[0] and not want[0])
+    outside = [(t, rep, names) for t, rep, names in reports if not lo <= t < hi]
+    for t, rep, names in outside:
+        check(names == ([ORDERS] if rep.flags[0] else []), f"flags at t={t} with the default threshold: {names}")
+    flood_flags = [t for t, _, names in reports if t >= t_onset and names]
+    rec = dict(pumps=len(pumps), orders=fed, via_producer=sent, batches=pipe.stats.batches, spans=pipe.stats.spans,
+               wall_s=wall, orders_per_s=fed / wall, lag_p99_ms=pipe.stats.lag_p99_ms(),
+               reports_skipped=pipe.stats.reports_skipped, launches=launches, disabled=off_rec,
+               staged_rows_dropped=off_rec["dropped"] - off_rec["fed_in_window"],
+               raised_threshold=raised, reports_under_raised=len(in_window), z_flags_lifted=lifted,
+               flagged_after_onset=len(flood_flags), spine=pipe.spine_stats())
+    print(f"orders live B=2048: {fed} orders ({sent} through the producer) in {len(pumps)} pumps, "
+          f"{wall:.3f} s = {rec['orders_per_s']:.0f} orders/s, lag p99 {rec['lag_p99_ms']:.3f} ms, "
+          f"{pipe.stats.batches} batches, fused_update launches {launches}; {ORDERS} flagged on the first "
+          f"batch of the flood (t={t_onset}) and never before; disabled for pumps {off[0]}-{off[1] - 1}: "
+          f"state bit-identical, {off_rec['dropped']} rows dropped ({rec['staged_rows_dropped']} staged or "
+          f"queued at the switch), fed {fed} = dispatched {pipe.stats.spans} + dropped "
+          f"{pipe.stats.dropped_disabled}; threshold {raised:.3f} for t in [{lo}, {hi}): {len(in_window)} "
+          f"reports equal the numpy recomputation, {lifted} z-flags lifted")
+    return rec
+
+
+def orders_resume(device, clean_s=12.0, flood_s=2.0, save_at=80, pill_at=50, tomb_at=100):
+    """Resume at B = 2048 (K1): saved mid-stream with the offsets after
+    the poll's records reached the pipeline, resumed from the file by a
+    fresh pipeline and a new source that seeks them. A poison pill and a
+    tombstone in the resumed stream advance their offsets and change
+    nothing else; an epoch-tagged commit reads back, a stale fence
+    blocks one."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import checkpoint
+    from opentelemetry_demo_tpu_torch.runtime.kafka_orders import OrdersSource
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    cfg = DetectorConfig()
+    pumps = live_pumps(82, clean_s, flood_s)
+    onset = int(round(clean_s / ORDER_DT))
+    n = len(pumps)
+
+    def pipe_for(det, flags):
+        return DetectorPipeline(det, on_report=lambda t, rep, names: flags.append((t, names)), batch_size=2048)
+
+    # The uninterrupted run, without the pill and the tombstone.
+    topic_a = OrderTopic()
+    src_a = OrdersSource(topic_a.addr, group_id="resume")
+    flags_a: list = []
+    a = pipe_for(AnomalyDetector(cfg, device=device), flags_a)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for k in range(n):
+        topic_a.publish(pumps[k])
+        offsets_a, _ = consume(src_a, a.submit)
+        a.pump(k * ORDER_DT)
+    a.drain()
+    wall_a = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["fused_update"]
+    final_a = state_to_numpy(a.detector.state)
+    check(launches == n, f"fused_update launched {launches} times in {n} batches")
+    src_a.close()
+    topic_a.stop()
+
+    # The interrupted run, with a poison pill before the save and a
+    # tombstone after it.
+    topic = OrderTopic()
+
+    def publish(k):
+        topic.publish(pumps[k])
+        if k == pill_at:
+            topic.publish_junk(b"\xff\xff\xff\xff", partition=1)
+        if k == tomb_at:
+            topic.publish_junk(None, partition=2)
+
+    src_b = OrdersSource(topic.addr, group_id="resume")
+    flags_b: list = []
+    b = pipe_for(AnomalyDetector(cfg, device=device), flags_b)
+    offsets: dict = {}
+    for k in range(save_at + 1):
+        publish(k)
+        off, _ = consume(src_b, b.submit)
+        offsets.update(off)
+        b.pump(k * ORDER_DT)
+    path = str(CKPT_DIR / "orders_resume")
+    checkpoint.save(path, b.detector, offsets=offsets, service_names=b.tensorizer.service_names,
+                    dispatch_lock=b._dispatch_lock)
+    b.drain()
+    spans_b = b.stats.spans
+    check(src_b.decode_failures == 1 and len(src_b.quarantine) == 1 and src_b.quarantine[0][3] == b"\xff" * 4,
+          f"the poison pill was not quarantined ({src_b.decode_failures} failures)")
+    src_b.close()
+    det, meta = checkpoint.load(path, cfg, device=device)
+    check(all(isinstance(p, str) for p in meta["offsets"]), "the offsets did not come back with string keys")
+    c = pipe_for(det, flags_b)
+    c.tensorizer.adopt_names(meta["service_names"])
+    src_c = OrdersSource(topic.addr, group_id="resume")
+    src_c.seek(meta["offsets"])
+    for k in range(save_at + 1, n):
+        publish(k)
+        off, _ = consume(src_c, c.submit)
+        offsets.update(off)
+        c.pump(k * ORDER_DT)
+    c.drain()
+    same_bits(state_to_numpy(c.detector.state), final_a, "the resumed orders run vs the uninterrupted one")
+    check(flags_b == flags_a, "the resumed run's flags differ from the uninterrupted run's")
+    check(spans_b + c.stats.spans == a.stats.spans,
+          f"{spans_b} + {c.stats.spans} orders dispatched, {a.stats.spans} in the uninterrupted run")
+    check(sum(offsets.values()) == sum(offsets_a.values()) + 2 == topic.n + topic.junk,
+          f"offsets {offsets} vs {offsets_a}: the pill and the tombstone must advance theirs")
+    flagged = [t for t, names in flags_a if names]
+    check(flagged and flagged[0] == onset * ORDER_DT and all(t >= onset * ORDER_DT for t in flagged),
+          f"the resume leg's flood flags at {flagged[:3]}")
+
+    class StaleFence:
+        def check(self, path=""):
+            raise checkpoint.StaleEpochError(f"fenced at {path}")
+
+    src_c.commit(offsets, epoch=3)
+    epoch = src_c.last_committed_epoch()
+    check(epoch == 3, f"the epoch tag reads {epoch}, not 3")
+    check([topic.broker.committed("resume", "orders", p) for p in range(3)] == [offsets[p] for p in range(3)],
+          "the committed offsets are not the run's")
+    src_c.fence = StaleFence()
+    try:
+        src_c.commit({p: 0 for p in range(3)}, epoch=2)
+        refused = False
+    except checkpoint.StaleEpochError:
+        refused = True
+    check(refused and [topic.broker.committed("resume", "orders", p) for p in range(3)]
+          == [offsets[p] for p in range(3)], "a stale fence did not block the commit")
+    src_c.close()
+    topic.stop()
+    rec = dict(pumps=n, orders=a.stats.spans, wall_s=wall_a, orders_per_s=a.stats.spans / wall_a, launches=launches,
+               saved_at=save_at, offsets=offsets, epoch=epoch, flagged=len(flagged))
+    print(f"orders resume B=2048: {n} pumps, saved at {save_at} with offsets {meta['offsets']}, resumed from the "
+          f"file: state bit-identical to the uninterrupted run, the same flags ({len(flagged)} flagged from "
+          f"t={onset * ORDER_DT}), {spans_b} + {c.stats.spans} = {a.stats.spans} orders; pill quarantined, "
+          f"tombstone passed, both offsets advanced; epoch tag 3 read back, a stale fence refused; "
+          f"uninterrupted {rec['orders_per_s']:.0f} orders/s, fused_update launches {launches}")
+    return rec
+
+
+def orders_backlog(device, n=BACKLOG, width=65536):
+    """Replay a backlog of ``n`` orders from offset 0 at B = 65536 with
+    ``sketch_impl="xla"`` (K2): ``OrdersSource.poll_batch`` →
+    ``IngestPool.submit_records`` → the pipeline (spine, async
+    harvester), as a deployment's pump feeds it; then the same payloads,
+    poll for poll, through the native ``decode_orders_columnar`` →
+    ``submit_columns``. The two states must be bit-identical."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.ingest_pool import IngestPool
+    from opentelemetry_demo_tpu_torch.runtime.kafka_orders import OrdersSource, decode_orders_columnar
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    cfg = DetectorConfig(sketch_impl="xla")
+    dt = width / ORDER_RATE  # virtual seconds of traffic a batch holds
+    t_make = time.perf_counter()
+    topic = OrderTopic()
+    topic.publish(order_payloads(83, n))
+    make_s = time.perf_counter() - t_make
+
+    def pipeline(reports):
+        return DetectorPipeline(AnomalyDetector(cfg, device=device), batch_size=width, spine_ring=2,
+                                harvest_async=True,
+                                on_report=lambda t, rep, names: reports.append((t, rep.flags.copy(), names)))
+
+    def pump_full(pipe, k, final=False):
+        while pipe.pending_rows() >= width or (final and pipe.pending_rows()):
+            pipe.pump(k * dt)
+            k += 1
+        return k
+
+    # The records path, timed by phase.
+    reports_a: list = []
+    a = pipeline(reports_a)
+    pool = IngestPool(a.submit_columns, a.tensorizer, workers=1)
+    source = OrdersSource(topic.addr, group_id="replay")
+    wire_c = source._ensure_wire(raise_on_fail=True)
+    fetch_s = [0.0]
+    fetch = wire_c.poll
+
+    def timed_fetch(*args, **kw):
+        tf = time.perf_counter()
+        try:
+            return fetch(*args, **kw)
+        finally:
+            fetch_s[0] += time.perf_counter() - tf
+
+    wire_c.poll = timed_fetch
+    polls, pos = [], {0: 0, 1: 0, 2: 0}
+    poll_s = submit_s = dispatch_s = 0.0
+    k = 0
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    while True:
+        tp = time.perf_counter()
+        offsets, records = source.poll_batch(0.0)
+        ts = time.perf_counter()
+        poll_s += ts - tp
+        if not offsets:
+            break
+        polls.append({p: (pos[p], o) for p, o in sorted(offsets.items())})
+        pos.update(offsets)
+        ticket = pool.submit_records(records)
+        if ticket is not None:
+            ticket.result(timeout=120.0)
+        td = time.perf_counter()
+        submit_s += td - ts
+        k = pump_full(a, k)
+        dispatch_s += time.perf_counter() - td
+    td = time.perf_counter()
+    pump_full(a, k, final=True)
+    a.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dispatch_s += time.perf_counter() - td
+    launches = _kernels.LAUNCHES["cms_hist"]
+    tensorize_s = pool.stats()["phase_s"].get("tensorize", 0.0)
+    pool.close()
+    a.close()
+    source.close()
+    check(a.stats.spans == n and sum(b - s for poll in polls for s, b in poll.values()) == n,
+          f"replayed {a.stats.spans} of {n} orders")
+    check(launches == a.stats.batches == -(-n // width), f"cms_hist launched {launches} times, "
+          f"{a.stats.batches} batches")
+
+    # The native twin, poll for poll.
+    reports_b: list = []
+    b = pipeline(reports_b)
+    decode_s = 0.0
+    k = 0
+    t1 = time.perf_counter()
+    for poll in polls:
+        payloads = [p for part, (s, e) in poll.items() for p in topic.by_partition[part][s:e]]
+        tn = time.perf_counter()
+        cols = decode_orders_columnar(payloads, b.tensorizer)
+        decode_s += time.perf_counter() - tn
+        b.submit_columns(cols)
+        k = pump_full(b, k)
+    pump_full(b, k, final=True)
+    b.drain()
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t1
+    b.close()
+    same_bits(state_to_numpy(b.detector.state), state_to_numpy(a.detector.state),
+              "the native orders twin vs the records path")
+    by_t = {t: (f.tobytes(), nm) for t, f, nm in reports_a}
+    check(len(reports_a) + a.stats.reports_skipped == a.stats.batches, "a report was lost on the records path")
+    check(all(by_t[t] == (f.tobytes(), nm) for t, f, nm in reports_b if t in by_t),
+          "the twin's reports differ from the records path's")
+    every = [p for part in range(3) for p in topic.by_partition[part]]
+    tn = time.perf_counter()
+    native.decode_orders(every[:width])
+    one_call = time.perf_counter() - tn
+    topic.stop()
+    rec = dict(orders=n, batches=a.stats.batches, launches=launches, polls=len(polls), make_s=make_s,
+               wall_s=wall, orders_per_s=n / wall, lag_p99_ms=a.stats.lag_p99_ms(),
+               split_s=dict(fetch_and_wire_decode=fetch_s[0], decode_order=poll_s - fetch_s[0],
+                            tensorize=tensorize_s, submit_wait=submit_s - tensorize_s, dispatch=dispatch_s),
+               twin=dict(wall_s=wall_b, orders_per_s=n / wall_b, native_decode_s=decode_s,
+                         native_orders_per_s=n / decode_s, lag_p99_ms=b.stats.lag_p99_ms()),
+               native_one_call=dict(orders=width, s=one_call, orders_per_s=width / one_call))
+    sp = rec["split_s"]
+    print(f"orders backlog B={width} impl=xla: {n} orders in {len(polls)} polls, {wall:.3f} s = "
+          f"{rec['orders_per_s']:.0f} orders/s end to end (fetch + wire decode {sp['fetch_and_wire_decode']:.3f} s, "
+          f"decode_order {sp['decode_order']:.3f} s, tensorize {sp['tensorize']:.3f} s, rest of the pool's hand-off "
+          f"{sp['submit_wait']:.3f} s, dispatch {sp['dispatch']:.3f} s), lag p99 {rec['lag_p99_ms']:.3f} ms, "
+          f"cms_hist launches {launches}; the native twin: state bit-identical, {rec['twin']['orders_per_s']:.0f} "
+          f"orders/s, decode_orders_columnar alone {rec['twin']['native_orders_per_s']:.0f} orders/s "
+          f"({width} in one call: {rec['native_one_call']['orders_per_s']:.0f} orders/s); "
+          f"{make_s:.3f} s to make and load the topic")
+    return rec
+
+
+def phase_orders(device, results):
+    """The Kafka ``orders`` leg on the card, with no external broker: the
+    port's ``KafkaBroker`` (three partitions) in process, orders made
+    from a seed, every leg consuming over the socket with
+    ``OrdersSource``; the live leg (flood, verdicts, flagd gating), the
+    resume leg and the backlog replay."""
+    t0 = time.perf_counter()
+    out = dict(live=orders_live(device), resume=orders_resume(device), backlog=orders_backlog(device))
+    out["wall_s"] = time.perf_counter() - t0
+    results["fused_update"]["launches_orders"] = {"live": out["live"]["launches"],
+                                                  "resume": out["resume"]["launches"]}
+    results["cms_hist"]["launches_orders"] = {"backlog": out["backlog"]["launches"]}
+    print(f"orders phase: {out['wall_s']:.1f} s ({gpu_line()})")
+    return out
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -2388,6 +2933,7 @@ def main() -> int:
     native_rec["overload"] = phase_overload(device, native_rec["e2e"][0]["spans_per_s"])
     native_rec["lag"] = phase_lag(device)
     doors = phase_doors(device, results)
+    orders = phase_orders(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -2413,11 +2959,12 @@ def main() -> int:
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
             library_ms=r["library_ms"], launches_doors=r.get("launches_doors"),
+            launches_orders=r.get("launches_orders"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
-         "doors": doors, "state": state, "mesh": mesh,
+         "doors": doors, "orders": orders, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -22,8 +22,11 @@ may spawn up to ``threads`` native threads to shard its extraction;
 they are spawned and joined inside the foreign call and see only raw
 buffers.
 
-Only the span entry points are bound; the orders decoder in the same
-source waits for the Kafka orders source.
+The same library decodes the Kafka ``orders`` topic:
+:func:`decode_orders` turns a poll's OrderResult payloads into the
+order-record columns (``runtime.kafka_orders.decode_orders_columnar``).
+The USD rate table it normalises order values with is installed once
+per load from the port's ``currency_data``.
 
 The native OTLP/HTTP front door (``csrc/host/frontdoor.cc``) is the
 second library here, built the same way into
@@ -78,6 +81,14 @@ class ColumnarSpans(NamedTuple):
     event_count: np.ndarray  # int32[N] — span events on the span
     has_exception: np.ndarray  # uint8[N] — exception/error event present
     services: list[str | None]
+
+
+class ColumnarOrders(NamedTuple):
+    """Decoded OrderResult batch as columns (one row per message)."""
+
+    value_units: np.ndarray  # float32[N] — shipping cost in USD (value lane)
+    order_key: np.ndarray  # uint64[N] — first 8 bytes of order id
+    attr_crc: np.ndarray  # uint32[N] — CRC32 of first non-empty product id
 
 
 def build_command(out: Path, source: Path = INGEST_SOURCE) -> list[str]:
@@ -176,6 +187,27 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p,           # present, svc_idx
         ctypes.c_void_p, ctypes.c_void_p,           # event_count, has_exc
     ]
+    lib.otd_decode_orders.restype = ctypes.c_int
+    lib.otd_decode_orders.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    # Install the USD table for the order value lane once per load: the
+    # factors kafka_orders.order_to_record applies per message.
+    lib.otd_set_order_rates.restype = None
+    lib.otd_set_order_rates.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_double), ctypes.c_int
+    ]
+    from ..currency_data import EUR_RATES, to_usd_factor
+
+    # The C side keeps at most 64 entries and drops the rest silently: a
+    # longer table would give native factor 1.0 where Python has the rate.
+    assert len(EUR_RATES) <= 64, "EUR_RATES exceeds native rate-table cap"
+    codes = b"".join(code.encode().ljust(8, b"\0")[:8] for code in EUR_RATES)
+    factors = (ctypes.c_double * len(EUR_RATES))(
+        *(to_usd_factor(code) for code in EUR_RATES)
+    )
+    lib.otd_set_order_rates(codes, factors, len(EUR_RATES))
 
 
 def _load() -> ctypes.CDLL | None:
@@ -670,3 +702,23 @@ def extract_otlp(payload: bytes, index: SpanIndex, attr_keys: Sequence[str]) -> 
         duration, trace, err, crc, present, svc_idx, event_count, has_exc,
         list(index.services),
     )
+
+
+def decode_orders(payloads: Sequence[bytes]) -> ColumnarOrders:
+    """Columnar decode of a batch of OrderResult payloads; raises
+    ``ValueError`` on a malformed payload (the per-message decoder's
+    verdict)."""
+    lib = _require()
+    n = len(payloads)
+    bufs = (ctypes.c_char_p * max(n, 1))(*payloads)
+    lens = np.asarray([len(p) for p in payloads] or [0], np.uint64)
+    value = np.empty(max(n, 1), np.float32)
+    key = np.empty(max(n, 1), np.uint64)
+    crc = np.empty(max(n, 1), np.uint32)
+    rc = lib.otd_decode_orders(
+        bufs, lens.ctypes.data, n,
+        value.ctypes.data, key.ctypes.data, crc.ctypes.data,
+    )
+    if rc < 0:
+        raise ValueError(f"malformed OrderResult payload (code {rc})")
+    return ColumnarOrders(value[:n], key[:n], crc[:n])

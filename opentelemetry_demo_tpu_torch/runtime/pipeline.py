@@ -48,8 +48,15 @@ Query capture: per-service rings of exemplar trace ids taken at flag
 time from the batch that flagged, recent attribute-CRC candidates for a
 CMS top-k, and recent anomaly events, all JSON-able (``query_meta``).
 
-Flagd gating, self-tracing, provenance bundles and history capture of
-the reference pipeline arrive with later slices.
+flagd gating (``flags``): while ``anomalyDetectorEnabled`` evaluates
+false, each pump drops the pending queue and the spine's staged batches
+(``stats.dropped_disabled``) and dispatches nothing, so the state holds.
+``anomalyDetectorZThreshold`` re-derives each harvested report's flags
+from its z-scores when it differs from the config's ``z_threshold``; the
+CUSUM alarms keep their own thresholds.
+
+Self-tracing, provenance bundles and history capture of the reference
+pipeline arrive with later slices.
 """
 
 from __future__ import annotations
@@ -71,8 +78,12 @@ from ..models.detector import (
     report_unpack,
 )
 from ..ops.hashing import splitmix64_np
+from ..utils.flags import FlagEvaluator
 from .spine import DevicePutSpine, pinned_device
 from .tensorize import SpanColumns, SpanRecord, SpanTensorizer
+
+FLAG_ENABLED = "anomalyDetectorEnabled"
+FLAG_THRESHOLD = "anomalyDetectorZThreshold"
 
 # The lanes the shed policy may drop. The error lane is absent: under any
 # overload the rows that explain an incident are the last a detector may
@@ -102,6 +113,8 @@ def _pow2_ceil(n: int) -> int:
 class PipelineStats:
     batches: int = 0
     spans: int = 0
+    # Rows dropped while the detector was switched off by its flag.
+    dropped_disabled: int = 0
     flag_events: int = 0
     # Reports dropped unread (their batches still updated the state).
     reports_skipped: int = 0
@@ -184,8 +197,10 @@ class DetectorPipeline:
         keyspace_hold_s: float = 5.0,
         keyspace_newkey_rate: float = 64.0,
         keyspace_retry_after_s: float = 2.0,
+        flags: FlagEvaluator | None = None,
     ):
         self.detector = detector
+        self.flags = flags or FlagEvaluator()
         # The detector's device with its index: worker threads set it.
         self._device = pinned_device(detector.device)
         self.on_report = on_report
@@ -555,6 +570,17 @@ class DetectorPipeline:
         if t_now is None:
             t_now = self._last_t if self._last_t is not None else time.monotonic()
         self._last_t = t_now
+        if not self.flags.evaluate(FLAG_ENABLED, True):
+            with self._pending_lock:
+                self.stats.dropped_disabled += self._pending_rows
+                self._pending.clear()
+                self._pending_rows = 0
+            if self._spine is not None:
+                # Staged batches not yet dispatched are pending work
+                # too: the off switch drops them with the queue.
+                self.stats.dropped_disabled += self._spine.discard_pending()
+            self._admission_update(0)
+            return
         width = self.batch_width
         with self._pending_lock:
             rows_avail = self._pending_rows
@@ -1025,6 +1051,20 @@ class DetectorPipeline:
             probe["thread"].join(timeout=10.0)
             self.stats.rtt_ms.append(probe["res"].get("rtt", float("nan")))
         flags_np = report.flags
+        z_threshold = self.detector.config.z_threshold
+        threshold = float(self.flags.evaluate(FLAG_THRESHOLD, z_threshold))
+        if threshold != z_threshold:
+            # Re-derive the flags from the report's z-scores at the
+            # flag's threshold; the CUSUM alarms keep their own.
+            z = np.maximum.reduce([
+                np.abs(report.lat_z).max(axis=1),
+                np.abs(report.err_z).max(axis=1),
+                np.abs(report.rate_z).max(axis=1),
+                np.abs(report.card_z).max(axis=1),
+            ])
+            cusum_thr = np.asarray(self.detector.config.cusum_thresholds, np.float32)
+            cusum_alarm = (report.cusum > cusum_thr[None, :]).any(axis=1)
+            flags_np = (z > threshold) | cusum_alarm
         flagged: list[str] = []
         if flags_np.any():
             self.stats.flag_events += 1
@@ -1033,8 +1073,6 @@ class DetectorPipeline:
                 names[i] if i < len(names) else f"svc-{i}"
                 for i in np.nonzero(flags_np)[0]
             ]
-            self._capture_exemplars(
-                t_batch, cols, report, flags_np, float(self.detector.config.z_threshold)
-            )
+            self._capture_exemplars(t_batch, cols, report, flags_np, threshold)
         if self.on_report is not None:
             self.on_report(t_batch, report, flagged)
