@@ -72,6 +72,21 @@ orders at B = 65536 through ``poll_batch`` → ``IngestPool.submit_records``
 against the native ``decode_orders_columnar`` twin, bit-identical, and
 prints the time split.
 
+The read side follows (``phase_read_side``): the main path at B = 2048
+and 65536 with every read-side hook on (the flag-time state snapshot off
+the card, one evidence bundle per flagged service, ``export_report``
+into a ``MetricRegistry`` scraped from ``PrometheusExporter``, a
+``QueryService`` answering a paced client while the pump runs, every
+batch traced through ``make_traces_poster`` to a local sink, the
+bundles as OTLP logs into the port's receiver). Each flag-time snapshot
+must equal ``state_to_numpy`` at its step bit for bit, the query
+documents the CPU's answer to the same state (and the gRPC twin's,
+where ``grpc`` imports); a snapshot taken while a step spins on another
+stream must equal the state after that step. It prints the snapshot's
+lock hold and wall, the provenance snapshot and bundle build per flag,
+the ``/metrics`` scrape, the tracer's cost at sample 0.01 and 1.0, and
+querybench at the default config.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -2260,6 +2275,506 @@ def phase_orders(device, results):
     return out
 
 
+# -- the read side -------------------------------------------------------------
+
+READ_PATHS = (
+    "/query/services", "/query/topk?service=service-07", "/query/cardinality?service=service-07",
+    "/query/zscore?service=service-07", "/query/anomalies", "/query/explain",
+)
+
+
+class RawSink:
+    """A local OTLP/HTTP sink that keeps each POSTed body whole, so the
+    self-traces can be read back with ``decode_selftrace_request``."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        bodies = self.bodies = []
+        lock = self.lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 (http.server API)
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                with lock:
+                    bodies.append((self.path, body))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    @property
+    def port(self) -> int:
+        return self.server.server_address[1]
+
+    def take(self, path: str) -> list[bytes]:
+        with self.lock:
+            out = [b for p, b in self.bodies if p == path]
+            self.bodies[:] = [(p, b) for p, b in self.bodies if p != path]
+        return out
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10.0)
+
+
+def http_json(port: int, path: str) -> tuple[int, dict]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30.0)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode())
+    finally:
+        conn.close()
+
+
+def cpu_engine_like(pipe):
+    """The port's query engine on the CPU over a copy of ``pipe``'s state
+    taken by ``state_to_numpy`` (not by the snapshot under test) and the
+    same query block."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector
+    from opentelemetry_demo_tpu_torch.models.detector import state_from_numpy, state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.query import QueryEngine
+    from opentelemetry_demo_tpu_torch.runtime.querybench import state_snapshot_fn
+
+    det = pipe.detector
+    torch.cuda.synchronize()
+    cpu = AnomalyDetector(det.config, device="cpu")
+    cpu.state = state_from_numpy(state_to_numpy(det.state), device="cpu")
+    cpu.clock._t_prev = det.clock._t_prev
+    twin = DetectorPipeline(cpu, batch_size=pipe.tensorizer.batch_size)
+    twin.tensorizer.adopt_names(pipe.tensorizer.service_names)
+    twin.restore_query_meta(json.loads(json.dumps(pipe.query_meta())))
+    twin.explanations_built = pipe.explanations_built  # a process counter, never restored
+    return QueryEngine(snapshot_fn=state_snapshot_fn(twin), max_staleness_s=1e9)
+
+
+def read_side_leg(device, impl, width, n_warm, n_fault, bodies_per_batch, sink, logs_rx, logs_got):
+    """One main-path run with every read-side hook on: native decode →
+    ``submit_columnar`` → spine (2 slots) → synchronous harvest (so the
+    step of each flag is known) → ``ProvenanceEngine`` with the flag-time
+    snapshot off the card → bundles in the explain ring and
+    ``query_meta``; ``export_report`` into a ``MetricRegistry`` served by
+    ``PrometheusExporter``; a ``QueryService`` over the snapshot function
+    answering a paced client while the pump runs; every batch traced
+    (sample 1.0) through ``make_traces_poster`` to a local sink; the
+    bundles exported as OTLP logs to the port's receiver."""
+    import threading
+    import urllib.request
+
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState, state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import native, selftrace
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.otlp_export import OtlpHttpLogsExporter, make_traces_poster
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.provenance import ProvenanceEngine, log_doc
+    from opentelemetry_demo_tpu_torch.runtime.query import QueryEngine, QueryGrpcService, QueryService, dispatch
+    from opentelemetry_demo_tpu_torch.runtime.querybench import state_snapshot_fn
+    from opentelemetry_demo_tpu_torch.telemetry import MetricRegistry, PrometheusExporter
+    from opentelemetry_demo_tpu_torch.telemetry.metrics import ANOMALY_PHASE_SECONDS, export_report
+
+    clean, faulty, spans = e2e_bodies(width, n_warm, n_fault, bodies_per_batch)
+    cfg = DetectorConfig(sketch_impl=impl)
+    kernel = "fused_update" if impl is None else "cms_hist"
+    n = n_warm + n_fault
+    biggest = max(sum(len(b) for b in batch_bodies(clean, faulty, k, n_warm, bodies_per_batch))
+                  for k in range(n))
+    scratch = native.alloc_scratch(*native.scratch_dims(biggest, bodies_per_batch))
+    registry = MetricRegistry()
+    det = AnomalyDetector(cfg, device=device)
+    prov = ProvenanceEngine(cfg, topk=5, trajectory_windows=16)
+    poster = make_traces_poster(f"http://127.0.0.1:{sink.port}", queue_max=256)
+    tracer = selftrace.SelfTracer(submit=poster.submit, sample=1.0)
+    reports: list = []
+    flag_snaps: list = []  # (snapshot arrays, state_to_numpy at that moment, seconds)
+
+    def on_report(t, report, flagged):
+        export_report(registry, pipe.tensorizer.service_names, report, flagged)
+        reports.append((t, flagged))
+
+    pipe = DetectorPipeline(
+        det, on_report=on_report, batch_size=width, spine_ring=2, harvest_async=False,
+        exemplar_ring=8, provenance=prov, selftrace=tracer,
+        phase_observe=lambda p, s: registry.histogram_observe(
+            ANOMALY_PHASE_SECONDS, s, selftrace.PHASE_BUCKETS, phase=p),
+    )
+    snapshot = pipe._provenance_snapshot
+
+    def flag_snapshot():
+        # The harvest is synchronous and nothing else is in flight, so the
+        # detector's state now is the state the snapshot must hold.
+        t0 = time.perf_counter()
+        arrays = snapshot()
+        secs = time.perf_counter() - t0
+        flag_snaps.append((arrays, state_to_numpy(det.state), secs))
+        return arrays
+
+    pipe._provenance_snapshot = flag_snapshot
+    engine = QueryEngine(snapshot_fn=state_snapshot_fn(pipe), max_staleness_s=0.05, topk_default=10)
+    service = QueryService(engine, registry=registry, host="127.0.0.1", port=0)
+    exporter = PrometheusExporter(registry, host="127.0.0.1", port=0)
+    logs_exp = OtlpHttpLogsExporter(f"http://127.0.0.1:{logs_rx.port}")
+    grpc_svc = None
+    service.start()
+    exporter.start()
+    stop = threading.Event()
+    live = {"ok": 0, "bad": []}
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            path = READ_PATHS[i % len(READ_PATHS)]
+            i += 1
+            status, _doc = http_json(service.port, path)
+            if status == 200:
+                live["ok"] += 1
+            else:
+                live["bad"].append((path, status))
+            stop.wait(0.01)
+
+    poller = threading.Thread(target=client, name="query-client", daemon=True)
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        for k in range(n):
+            bodies = batch_bodies(clean, faulty, k, n_warm, bodies_per_batch)
+            cols, rows = native.decode_otlp_many(bodies, MONITORED_ATTR_KEYS, scratch=scratch,
+                                                 threads=decode_threads())
+            check(rows.tolist() == [spans] * bodies_per_batch, f"native verdicts {rows.tolist()}")
+            pipe.submit_columnar(cols, copy=True)
+            pipe.pump(k * DT_S)
+            if k == 0:
+                # The client starts once the first batch has named the
+                # services it asks about (an unknown name is a 404).
+                poller.start()
+        pipe.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernels.LAUNCHES[kernel]
+        stop.set()
+        poller.join(timeout=30.0)
+        check(launches == n, f"{kernel} launched {launches} times in {n} batches of the read-side run")
+        check(len(reports) == n, f"{len(reports)} reports read of {n}")
+        check(not live["bad"] and live["ok"] > 0,
+              f"queries during the run: {live['ok']} answered, failures {live['bad'][:3]}")
+        # Flags: the faulty service on the first batch after onset, never before.
+        target = f"service-{SLOW:02d}"
+        onset = n_warm * DT_S
+        before = [names for t, names in reports if t < onset and names]
+        check(not before, f"read side B={width}: flags before onset {before[:3]}")
+        at_onset = [names for t, names in reports if t == onset]
+        check(at_onset == [[target]], f"read side B={width}: the first batch after onset flags {at_onset}")
+        # Bundles: one per flagged service per flag, each citing the
+        # state at its flag bit for bit.
+        flags = sum(len(names) for _, names in reports)
+        meta = pipe.query_meta()
+        bundles = meta["explains"]
+        check(len(bundles) == pipe.explanations_built == flags,
+              f"{len(bundles)} bundles, {pipe.explanations_built} built, for {flags} flagged services")
+        check(pipe.stats.provenance_misses == 0, f"{pipe.stats.provenance_misses} flag-time snapshots failed")
+        check(len(flag_snaps) == pipe.stats.flag_events, f"{len(flag_snaps)} snapshots for "
+              f"{pipe.stats.flag_events} flags")
+        for arrays, want, _secs in flag_snaps:
+            same_bits(DetectorState(**arrays), want, f"flag-time snapshot (B={width})")
+        by_seq = {int(want.step_idx): want for _a, want, _s in flag_snaps}
+        for b in bundles:
+            check(b["service"] == target, f"a bundle for {b['service']}")
+            want = {}
+            prov._attach_state(want, by_seq[b["seq"]]._asdict(), b["service_id"],
+                               [int(k["attr_crc"], 16) for k in b["top_keys"]])
+            for key in ("ewma", "cusum", "cardinality"):
+                check(b[key] == want[key], f"bundle {b['id']}: {key} differs from state_to_numpy")
+            check(b["top_keys"] == want["top_keys"], f"bundle {b['id']}: top keys differ from state_to_numpy")
+            check(len(b["trajectory"]) == min(16, n) and b["exemplars"], f"bundle {b['id']}: trajectory/exemplars")
+        # /metrics over a socket.
+        ts = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}/metrics", timeout=30.0) as resp:
+            text = resp.read().decode()
+        scrape_ms = (time.perf_counter() - ts) * 1e3
+        for i in range(N_SERVICES):
+            check(f'app_anomaly_z_score{{service="service-{i:02d}",signal="latency"}}' in text,
+                  f"/metrics lacks the z-score of service-{i:02d}")
+        check(f'app_anomaly_flags_total{{service="{target}"}}' in text, "/metrics lacks the flag counter")
+        check('anomaly_phase_seconds_bucket{le="+Inf",phase="dispatch"}' in text, "/metrics lacks the phases")
+        # Self-traces through the poster.
+        check(poster.flush(30.0) and poster.errors == 0 and poster.dropped == 0,
+              f"trace poster: sent {poster.sent}, errors {poster.errors}, dropped {poster.dropped}")
+        traces = [selftrace.decode_selftrace_request(b) for b in sink.take("/v1/traces")]
+        check(len(traces) == n == tracer.traces_exported, f"{len(traces)} traces for {n} batches")
+        by_trace = {}
+        for spans_ in traces:
+            names = [s["name"] for s in spans_]
+            check({selftrace.SPAN_BATCH, selftrace.SPAN_DISPATCH, selftrace.SPAN_HARVEST,
+                   selftrace.SPAN_STAGE, selftrace.SPAN_PUT} <= set(names), f"trace spans {names}")
+            root = spans_[-1]
+            check(all(s["parent_span_id"] == root["span_id"] for s in spans_[:-1]), "a span off the root")
+            by_trace[root["trace_id"]] = spans_
+        for b in bundles:
+            spans_ = by_trace.get(b["selftrace"])
+            check(spans_ is not None, f"bundle {b['id']}: no trace {b['selftrace']}")
+            flag = [s for s in spans_ if s["name"] == selftrace.SPAN_FLAG]
+            check(len(flag) == 1 and [x[:16] for x in flag[0]["links"]] == b["exemplars"],
+                  f"bundle {b['id']}: the flag span's links are not its exemplars")
+        n_flag_traces = sum(any(s["name"] == selftrace.SPAN_FLAG for s in t) for t in traces)
+        check(n_flag_traces == pipe.stats.flag_events, f"{n_flag_traces} traces with a flag span")
+        # The bundles as OTLP logs into the port's receiver.
+        logs_exp(0.0, [log_doc(b) for b in pipe.take_explain_exports()])
+        check(logs_exp.flush(30.0) and logs_exp.sent == 1 and logs_exp.errors == 0, "explain log export")
+        got_ids = {d.attrs.get("anomaly.bundle_id") for d in logs_got}
+        check(got_ids == {b["id"] for b in bundles}, f"explain logs carry {len(got_ids)} bundle ids "
+              f"of {len(bundles)}")
+        logs_got.clear()
+        # The query documents against the CPU's answer to the same state.
+        engine.max_staleness_s = 1e9
+        check(engine.refresh(), "query refresh failed")
+        cpu = cpu_engine_like(pipe)
+        for path in READ_PATHS:
+            status, doc = http_json(service.port, path)
+            route, _, q = path.partition("?")
+            params = dict(p.split("=", 1) for p in q.split("&") if p)
+            c_status, c_doc = dispatch(cpu, route, params)
+            check(status == c_status == 200, f"{path}: {status} on the card, {c_status} on the CPU")
+            got, want = dict(doc["data"]), dict(c_doc["data"])
+            if "timeline" in got:
+                check(got.pop("timeline")[-1]["estimate"] == want.pop("timeline")[-1]["estimate"],
+                      f"{path}: timeline differs")
+            check(got == want, f"{path}: the card's document differs from the CPU's")
+            check(doc["meta"]["seq"] == c_doc["meta"]["seq"] == n, f"{path}: seq {doc['meta']['seq']}")
+        grpc_note = "not run: grpc does not import here"
+        try:
+            import grpc  # noqa: F401
+        except ImportError:
+            grpc = None
+        if grpc is not None:
+            from opentelemetry_demo_tpu_torch.runtime.query import grpc_query
+
+            grpc_svc = QueryGrpcService(engine, host="127.0.0.1", port=0)
+            grpc_svc.start()
+            for path in READ_PATHS:
+                route, _, q = path.partition("?")
+                params = dict(p.split("=", 1) for p in q.split("&") if p)
+                doc = grpc_query(f"127.0.0.1:{grpc_svc.port}", route, params)
+                check(doc["data"] == http_json(service.port, path)[1]["data"], f"gRPC {path} differs from HTTP")
+            grpc_note = f"gRPC twin answered the {len(READ_PATHS)} documents as HTTP did"
+        check(engine.refresh_errors == 0, f"refresh_errors {engine.refresh_errors}")
+        # One state snapshot, timed after the run (nothing else takes
+        # the lock now).
+        timed = pipe._dispatch_lock = TimedLock(pipe._dispatch_lock)
+        walls = []
+        for _ in range(20):
+            ts = time.perf_counter()
+            pipe.state_snapshot()
+            walls.append((time.perf_counter() - ts) * 1e3)
+        pipe._dispatch_lock = timed.lock
+        holds = timed.held_ms
+        builds = [s * 1e3 for s in prov.take_build_samples()]
+        snap_ms = [s * 1e3 for _a, _w, s in flag_snaps]
+        rec = dict(
+            width=width, impl=impl, batches=n, wall_s=wall, launches=launches,
+            flags=pipe.stats.flag_events, bundles=len(bundles), queries_during_run=live["ok"],
+            snapshot_hold_ms=dict(p50=float(np.median(holds)), max=float(max(holds))),
+            snapshot_wall_ms=dict(p50=float(np.median(walls)), max=float(max(walls))),
+            state_bytes=int(sum(t.numel() * t.element_size() for t in det.state)),
+            provenance_snapshot_ms=snap_ms, bundle_build_ms=builds, scrape_ms=scrape_ms,
+            metrics_bytes=len(text), traces=len(traces), grpc=grpc_note,
+        )
+        print(f"read side B={width} impl={impl}: {n} batches, {kernel} launches {launches}; "
+              f"{target} flagged on the first batch after onset, none before; {len(bundles)} bundles, "
+              f"each flag-time snapshot == state_to_numpy at its step; state snapshot "
+              f"({rec['state_bytes']} bytes): lock held p50 {rec['snapshot_hold_ms']['p50']:.4f} ms "
+              f"(max {rec['snapshot_hold_ms']['max']:.4f}), wall p50 {rec['snapshot_wall_ms']['p50']:.4f} ms "
+              f"(max {rec['snapshot_wall_ms']['max']:.4f}); per flag: provenance snapshot "
+              f"{', '.join(f'{x:.4f}' for x in snap_ms)} ms, bundle build "
+              f"{', '.join(f'{x:.4f}' for x in builds)} ms; /metrics scrape {scrape_ms:.3f} ms "
+              f"({len(text)} bytes); {len(traces)} traces and {len(bundles)} explain logs arrived and decoded; "
+              f"{live['ok']} queries answered during the run; the {len(READ_PATHS)} query documents == the "
+              f"CPU's; {grpc_note} ({gpu_line()})")
+        return rec
+    finally:
+        stop.set()
+        if poller.is_alive():
+            poller.join(timeout=30.0)
+        pipe.close()
+        poster.close()
+        logs_exp.close()
+        service.stop()
+        exporter.stop()
+        if grpc_svc is not None:
+            grpc_svc.stop()
+
+
+def snapshot_order(device, spin_cycles=200_000_000):
+    """A step dispatched on a side stream behind ~100 ms of spin; while it
+    is still queued, another thread (whose current stream is the default
+    one) takes a state snapshot. The snapshot, enqueued on the step's
+    stream under the dispatch lock, must equal the state after that step,
+    and the lock must be held for a small part of the spin."""
+    import threading
+
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState, state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    rng = np.random.default_rng(31)
+    det = AnomalyDetector(DetectorConfig(), device=device)
+    pipe = DetectorPipeline(det, batch_size=2048, harvest_interval_s=1e9)
+    try:
+        side = torch.cuda.Stream(device)
+        # One step on each stream first, so neither the allocator's pools
+        # nor the pinned buffers are new when the spun step goes out.
+        for k, stream in enumerate((torch.cuda.current_stream(device), side)):
+            with torch.cuda.stream(stream):
+                pipe.submit_columns(make_columns(rng, 2048))
+                pipe.pump(k * DT_S)
+                pipe.drain()
+        torch.cuda.synchronize()
+        before = state_to_numpy(det.state)
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(spin_cycles)
+            t0 = time.perf_counter()
+            pipe.submit_columns(make_columns(rng, 2048))
+            pipe.pump(2 * DT_S)
+            pump_ms = (time.perf_counter() - t0) * 1e3
+            probe = torch.cuda.Event()
+            probe.record(side)
+        check(pipe.step_stream == side, "the pipeline did not record the step's stream")
+        running = not probe.query()
+        timed = pipe._dispatch_lock = TimedLock(pipe._dispatch_lock)
+        out = {}
+        th = threading.Thread(target=lambda: out.update(snap=pipe.state_snapshot()), name="snapshot-reader")
+        th.start()
+        th.join(timeout=60.0)
+        pipe._dispatch_lock = timed.lock
+        check(running, f"the step was done before the snapshot was enqueued (the pump took {pump_ms:.3f} ms "
+                       f"behind {spin_cycles} cycles of spin)")
+        check("snap" in out, "the snapshot thread did not finish")
+        torch.cuda.synchronize()
+        after = state_to_numpy(det.state)
+        arrays = out["snap"][0]
+        check(int(after.step_idx) == int(before.step_idx) + 1, "the spun step did not run")
+        same_bits(DetectorState(**arrays), after, "snapshot behind a spinning step vs the state after it")
+        check(before.hll_bank.tobytes() != after.hll_bank.tobytes(), "the step left the banks unchanged")
+        hold = timed.held_ms[-1]
+        check(hold < 5.0, f"the snapshot held the dispatch lock {hold:.3f} ms behind a ~100 ms spin")
+        print(f"snapshot order: a step on a side stream behind ~100 ms of spin, snapshot taken from another "
+              f"thread while it ran: == the state after the step (step_idx {int(after.step_idx)}); lock held "
+              f"{hold:.4f} ms; the pump took {pump_ms:.3f} ms")
+        return dict(hold_ms=hold, pump_ms=pump_ms, running=running)
+    finally:
+        pipe.close()
+
+
+def tracer_cost(device, sink, width=2048, n_warm=40, n_fault=4):
+    """The native B=2048 leg (spine + async harvester) with the tracer
+    off, at sample 0.01 and at 1.0, in turns (off, 0.01, 1.0, 1.0, 0.01,
+    off); each setting's second run is kept."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.runtime import native, selftrace
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.otlp_export import make_traces_poster
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    clean, faulty, spans = e2e_bodies(width, n_warm, n_fault, 1)
+    n = n_warm + n_fault
+    scratch = native.alloc_scratch(*native.scratch_dims(max(len(b) for b in clean + faulty), 1))
+    threads = decode_threads()
+
+    def run(sample):
+        poster = tracer = None
+        if sample is not None:
+            poster = make_traces_poster(f"http://127.0.0.1:{sink.port}", queue_max=256)
+            tracer = selftrace.SelfTracer(submit=poster.submit, sample=sample)
+        pipe = DetectorPipeline(AnomalyDetector(DetectorConfig(), device=device), batch_size=width,
+                                spine_ring=2, harvest_async=True, selftrace=tracer)
+        try:
+            t0 = time.perf_counter()
+            for k in range(n):
+                cols, _rows = native.decode_otlp_many(batch_bodies(clean, faulty, k, n_warm, 1),
+                                                      MONITORED_ATTR_KEYS, scratch=scratch, threads=threads)
+                pipe.submit_columnar(cols, copy=True)
+                pipe.pump(k * DT_S)
+            pipe.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipe.close()
+        out = dict(spans_per_s=n * width / wall, traces=0)
+        if poster is not None:
+            check(poster.flush(30.0) and poster.errors == 0, f"trace poster errors {poster.errors}")
+            out["traces"] = tracer.traces_exported
+            poster.close()
+            sink.take("/v1/traces")
+        return out
+
+    order = (None, 0.01, 1.0, 1.0, 0.01, None)
+    runs = [(s, run(s)) for s in order]
+    kept = {}
+    for s, r in runs:
+        kept.setdefault(str(s), []).append(r)
+    rec = {k: dict(first=v[0], second=v[1]) for k, v in kept.items()}
+    check(rec["1.0"]["second"]["traces"] == n, f"{rec['1.0']['second']['traces']} traces at sample 1.0")
+    check(rec["0.01"]["second"]["traces"] == sum(selftrace.sampled(i, 0.01) for i in range(n)),
+          "the traces at 0.01 are not the sampled batches")
+    print(f"tracer cost, native B={width} (spine + async), in turns off/0.01/1.0/1.0/0.01/off: spans/s "
+          + "; ".join(f"{k}: {v['first']['spans_per_s']:.0f} then {v['second']['spans_per_s']:.0f}"
+                      for k, v in rec.items()) + f" ({gpu_line()})")
+    return rec
+
+
+def phase_read_side(device, results):
+    """The detector's read side on the card (see ``read_side_leg``): at
+    B=2048 (the fused-update kernel) and 65536 (``sketch_impl="xla"``,
+    the CMS-histogram kernel), each with a ×10 latency fault after the
+    CUSUM warm-up; the snapshot behind a spinning step; the tracer's
+    cost on the native B=2048 leg; and querybench at the default
+    ``DetectorConfig``."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.runtime.otlp import OtlpHttpReceiver
+    from opentelemetry_demo_tpu_torch.runtime.querybench import measure_query
+
+    t0 = time.perf_counter()
+    sink = RawSink()
+    logs_got: list = []
+    logs_rx = OtlpHttpReceiver(lambda recs: None, host="127.0.0.1", port=0, on_log_records=logs_got.extend)
+    logs_rx.start()
+    try:
+        legs = [
+            read_side_leg(device, None, 2048, 40, 4, 1, sink, logs_rx, logs_got),
+            read_side_leg(device, "xla", 65536, 24, 3, 8, sink, logs_rx, logs_got),
+        ]
+        order = snapshot_order(device)
+        cost = tracer_cost(device, sink)
+    finally:
+        logs_rx.stop()
+        sink.close()
+    qb = measure_query(seconds=2.0, config=DetectorConfig(), device=device)
+    check(qb["query_errors"] == 0 and qb["queries_total"] > 0, f"querybench: {qb}")
+    print(f"querybench at the default DetectorConfig on the card: query p50 {qb['query_p50_ms']} ms, "
+          f"p99 {qb['query_p99_ms']} ms, {qb['query_qps']} queries/s, explain p99 {qb['explain_p99_ms']} ms, "
+          f"ingest_ratio {qb['ingest_ratio']} ({qb['ingest_spans_per_sec']} vs "
+          f"{qb['ingest_spans_per_sec_baseline']} spans/s) ({gpu_line()})")
+    results["fused_update"]["launches_read"] = legs[0]["launches"]
+    results["cms_hist"]["launches_read"] = legs[1]["launches"]
+    out = dict(legs=legs, snapshot_order=order, tracer_cost=cost, querybench=qb,
+               wall_s=time.perf_counter() - t0)
+    print(f"read-side phase: {out['wall_s']:.1f} s")
+    return out
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -2934,6 +3449,7 @@ def main() -> int:
     native_rec["lag"] = phase_lag(device)
     doors = phase_doors(device, results)
     orders = phase_orders(device, results)
+    read_side = phase_read_side(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -2959,12 +3475,12 @@ def main() -> int:
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
             library_ms=r["library_ms"], launches_doors=r.get("launches_doors"),
-            launches_orders=r.get("launches_orders"),
+            launches_orders=r.get("launches_orders"), launches_read=r.get("launches_read"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
-         "doors": doors, "orders": orders, "state": state, "mesh": mesh,
+         "doors": doors, "orders": orders, "read_side": read_side, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

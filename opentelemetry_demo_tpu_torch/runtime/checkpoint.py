@@ -40,6 +40,7 @@ from .. import resolve_device
 from ..models.detector import AnomalyDetector, DetectorConfig, DetectorState, state_from_numpy
 from ..models.metrics_head import MetricsHeadConfig, MetricsHeadState, head_state_from_numpy
 from . import frame
+from .hostcopy import HostCopy
 
 log = logging.getLogger(__name__)
 
@@ -78,46 +79,6 @@ def _content_digest(state_np: dict, meta_json: str) -> str:
     return h.hexdigest()
 
 
-class _HostCopy:
-    """A stream-ordered copy of a tuple of tensors to the host.
-
-    The constructor takes the layout and allocates the host buffer (pinned
-    for a card); :meth:`start` only enqueues work on the tensors' device
-    (a gather of every tensor's bytes into one buffer, one copy of it to
-    the host buffer, an event), so it can run under a lock without
-    waiting for in-flight steps; :meth:`numpy` waits for the event and
-    returns the arrays, with the tensors' dtypes and shapes."""
-
-    def __init__(self, like):
-        self._layout = [(_np_dtype(t.dtype), tuple(t.shape)) for t in like]
-        n = sum(int(np.prod(shape, dtype=np.int64)) * dtype.itemsize for dtype, shape in self._layout)
-        self._cuda = like[0].is_cuda
-        self._host = torch.empty(n, dtype=torch.uint8, pin_memory=self._cuda)
-        self._ready = None
-
-    def start(self, tensors) -> None:
-        flat = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
-        self._host.copy_(flat, non_blocking=self._cuda)
-        if self._cuda:
-            self._ready = torch.cuda.Event()
-            self._ready.record()
-
-    def numpy(self) -> list[np.ndarray]:
-        if self._ready is not None:
-            self._ready.synchronize()
-        raw = self._host.numpy()
-        out, pos = [], 0
-        for dtype, shape in self._layout:
-            n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-            out.append(raw[pos:pos + n].view(dtype).reshape(shape))
-            pos += n
-        return out
-
-
-def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
-
-
 def _to_numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -125,7 +86,7 @@ def _to_numpy(x) -> np.ndarray:
 def _feed_snapshot(feed) -> dict:
     """The metrics head's state (numpy) and intern tables, read under the
     feed's lock so no pump runs in between."""
-    copy = _HostCopy(feed.head.state)
+    copy = HostCopy(feed.head.state)
     with feed._lock:
         copy.start(feed.head.state)
         snap = {
@@ -156,7 +117,7 @@ def save(
     while the state's copy to the host is enqueued (and the clock read);
     the wait for it, the frame encode and the fsync'd write run outside.
     """
-    copy = _HostCopy(detector.state)
+    copy = HostCopy(detector.state)
     with dispatch_lock if dispatch_lock is not None else _NULL_LOCK:
         copy.start(detector.state)
         clock_t_prev = detector.clock._t_prev

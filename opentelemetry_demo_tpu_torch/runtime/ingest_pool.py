@@ -321,6 +321,8 @@ class IngestPool:
         coalesce_max: int = 64,
         max_pending: int = 512,
         attr_keys: Sequence[str] = MONITORED_ATTR_KEYS,
+        phase_observe=None,
+        selftrace=None,
         native_threads: int = 2,
         shard_min_bytes: int = native.SHARD_MIN_BYTES_DEFAULT,
     ):
@@ -338,6 +340,12 @@ class IngestPool:
         self.native_threads = int(native_threads)
         self.shard_min_bytes = int(shard_min_bytes)
         self.attr_keys = tuple(attr_keys)
+        # Self-telemetry (runtime.selftrace), both optional, one call per
+        # flush: ``phase_observe(phase, seconds)`` feeds the phase
+        # histograms, and ``selftrace.flush_segment`` records the flush's
+        # phases for the next sampled batch trace.
+        self.phase_observe = phase_observe
+        self.selftrace = selftrace
         self._q = _JobQueue(max_pending)
         self._scratch = ScratchPool(keep=self.workers + 1)
         # Counters, under _stats_lock.
@@ -459,21 +467,26 @@ class IngestPool:
         record_jobs = [(d, t) for kind, d, t in batch if kind == "records"]
         parts: list[SpanColumns] = []
         errors: dict[int, BaseException] = {}  # job index → decode error
+        # This flush's phase ledger: the same durations feed phase_s,
+        # phase_observe and the self-tracer's flush segment.
+        seg: dict[str, float] = {}
         if payload_jobs:
-            parts += self._decode_native(payload_jobs, errors, arena)
+            parts += self._decode_native(payload_jobs, errors, arena, seg)
         if record_jobs:
             t0 = time.perf_counter()
             merged: list[SpanRecord] = []
             for records, _t in record_jobs:
                 merged.extend(records)
             parts.append(self.tensorizer.columns_from_records(merged))
-            self._phase(PHASE_TENSORIZE, time.perf_counter() - t0)
+            self._phase(PHASE_TENSORIZE, time.perf_counter() - t0, seg)
         cols = SpanColumns.concat(parts) if parts else None
         n_rows = cols.rows if cols is not None else 0
         if n_rows:
             t0 = time.perf_counter()
             self.submit_columns(cols)
-            self._phase(PHASE_SUBMIT, time.perf_counter() - t0)
+            self._phase(PHASE_SUBMIT, time.perf_counter() - t0, seg)
+        if self.selftrace is not None and seg:
+            self.selftrace.flush_segment(seg)
         # Drop this frame's views: the rows now live exactly as long as
         # the pipeline holds them, which is what the scavenge checks.
         del parts, cols
@@ -491,7 +504,7 @@ class IngestPool:
             if ticket is not None:
                 ticket._resolve(None)
 
-    def _decode_native(self, payload_jobs, errors, arena=None) -> list[SpanColumns]:
+    def _decode_native(self, payload_jobs, errors, arena=None, seg=None) -> list[SpanColumns]:
         payloads = [p for p, _t in payload_jobs]
         total = sum(len(p) for p in payloads)
         t0 = time.perf_counter()
@@ -510,19 +523,19 @@ class IngestPool:
                     errors[i] = ValueError("malformed OTLP payload")
             # Timed before the empty return: an all-malformed flood
             # spends real decode time too.
-            self._phase(PHASE_DECODE, time.perf_counter() - t0)
-            self._phase(PHASE_SCAN, native_phases.get("scan", 0.0))
-            self._phase(PHASE_EXTRACT, native_phases.get("extract", 0.0))
+            self._phase(PHASE_DECODE, time.perf_counter() - t0, seg)
+            self._phase(PHASE_SCAN, native_phases.get("scan", 0.0), seg)
+            self._phase(PHASE_EXTRACT, native_phases.get("extract", 0.0), seg)
             if not cols.duration_us.shape[0]:
                 return []
             # The pipeline gets views into the scratch. The manifest
             # taken now is checked again when the scratch is recycled.
             t0 = time.perf_counter()
             crcs = frame.span_column_crcs(cols)
-            self._phase(PHASE_VERIFY, time.perf_counter() - t0)
+            self._phase(PHASE_VERIFY, time.perf_counter() - t0, seg)
             t0 = time.perf_counter()
             out = self.tensorizer.columns_from_columnar(cols, copy=False, arena=arena)
-            self._phase(PHASE_TENSORIZE, time.perf_counter() - t0)
+            self._phase(PHASE_TENSORIZE, time.perf_counter() - t0, seg)
             if cols.duration_us.base is scratch.duration:
                 self._scratch.park(scratch, cols, crcs)
                 parked = True
@@ -534,9 +547,15 @@ class IngestPool:
             if not parked:
                 self._scratch.release(scratch)
 
-    def _phase(self, name: str, dt: float) -> None:
+    def _phase(self, name: str, dt: float, seg: dict | None = None) -> None:
+        """Add a flush phase's seconds to ``phase_s``, the flush's
+        ``seg`` ledger and ``phase_observe``."""
         with self._stats_lock:
             self.phase_s[name] += dt
+        if seg is not None:
+            seg[name] = seg.get(name, 0.0) + dt
+        if self.phase_observe is not None:
+            self.phase_observe(name, dt)
 
     def _drain_scratch_corruption(self) -> None:
         """Count parked-scratch CRC mismatches into ``frames_corrupt``

@@ -17,8 +17,9 @@ HistogramDataPoint{start_time_unix_nano=2, time_unix_nano=3, count=4,
 sum=5, bucket_counts=6, explicit_bounds=7}.
 
 :func:`encode_metrics_request` builds such a body (one resource per
-service, the shape every OTLP SDK produces). The registry exporter of
-the reference arrives with the daemon.
+service, the shape every OTLP SDK produces); :func:`registry_to_request`
+folds a :class:`~..telemetry.metrics.MetricRegistry` into one, and
+:class:`OtlpHttpMetricsExporter` POSTs it from a background sender.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import struct
 from typing import Iterable, NamedTuple
 
 from . import wire
+from .otlp_export import BackgroundPoster, _ExporterBase, grpc_send, split_endpoint
 
 # AggregationTemporality enum (metrics/v1).
 TEMPORALITY_UNSPECIFIED = 0
@@ -253,3 +255,55 @@ def encode_metrics_request(
             rm += wire.encode_len(2, ms)
         rms += wire.encode_len(1, rm)
     return rms
+
+
+def registry_to_request(
+    jobs: Iterable[tuple[str, "object"]], t_ns: int, start_ns: int = 0
+) -> bytes:
+    """Encode (job, MetricRegistry) pairs; label sets fold.
+
+    A counter's per-label-set series sum into one per-service total (the
+    metrics head consumes counter rates); gauges fold by max, the natural
+    disjunction for up/status gauges.
+    """
+    payload = []
+    for job, registry in jobs:
+        counters, gauges = registry.snapshot()
+        folded: dict[str, float] = {}
+        for (name, _labels), value in counters.items():
+            folded[name] = folded.get(name, 0.0) + value
+        rows = [(name, value, True) for name, value in sorted(folded.items())]
+        gfold: dict[str, float] = {}
+        for (name, _labels), value in gauges.items():
+            gfold[name] = max(gfold.get(name, float("-inf")), value)
+        rows += [(name, value, False) for name, value in sorted(gfold.items())]
+        payload.append((job, rows))
+    return encode_metrics_request(payload, t_ns, start_ns)
+
+
+class OtlpHttpMetricsExporter(_ExporterBase):
+    """POSTs registry snapshots to an OTLP/HTTP ``/v1/metrics`` endpoint
+    (``grpc://host:port`` ships over OTLP/gRPC instead).
+
+    Called with ``(now, [(job, registry), ...])``, it encodes one
+    ExportMetricsServiceRequest and queues it on a background poster, so
+    the caller never waits on the network. Failures count, not raise.
+    """
+
+    def __init__(self, endpoint: str, timeout_s: float = 2.0, queue_max: int = 16):
+        scheme, target = split_endpoint(endpoint)
+        if scheme == "grpc":
+            self._poster = BackgroundPoster(
+                target, "application/grpc", timeout_s, queue_max,
+                send=grpc_send(target, "metrics", timeout_s),
+            )
+        else:
+            target = target.rstrip("/")
+            if not target.endswith("/v1/metrics"):
+                target += "/v1/metrics"
+            self._poster = BackgroundPoster(
+                target, "application/x-protobuf", timeout_s, queue_max
+            )
+
+    def __call__(self, now: float, jobs: list) -> None:
+        self._poster.submit(registry_to_request(jobs, t_ns=int(now * 1e9)))

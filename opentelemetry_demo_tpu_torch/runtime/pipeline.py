@@ -46,7 +46,21 @@ new-key throttle · 3 fold all new keys to overflow · 4 shed ingest
 
 Query capture: per-service rings of exemplar trace ids taken at flag
 time from the batch that flagged, recent attribute-CRC candidates for a
-CMS top-k, and recent anomaly events, all JSON-able (``query_meta``).
+CMS top-k, recent anomaly events and their evidence bundles, all
+JSON-able (``query_meta``).
+
+Read side (all hooks default to None and then cost one None check):
+``selftrace`` (a ``runtime.selftrace.SelfTracer``) samples batch
+lifecycles into traces that ride the batch from pump to harvester;
+``phase_observe(phase, seconds)`` feeds per-phase histograms; and
+``provenance`` (a ``runtime.provenance.ProvenanceEngine``) rings every
+harvested report and builds one evidence bundle per flagged service.
+A flag's bundle cites the state at the flag: :meth:`DetectorPipeline.state_snapshot`
+enqueues a copy of the whole state on the steps' stream under the
+dispatch lock and waits for it after releasing the lock, so the copy
+holds exactly the steps dispatched before it and never stalls the pump
+behind the steps in flight. The query plane reads state through the
+same snapshot.
 
 flagd gating (``flags``): while ``anomalyDetectorEnabled`` evaluates
 false, each pump drops the pending queue and the spine's staged batches
@@ -55,8 +69,8 @@ false, each pump drops the pending queue and the spine's staged batches
 from its z-scores when it differs from the config's ``z_threshold``; the
 CUSUM alarms keep their own thresholds.
 
-Self-tracing, provenance bundles and history capture of the reference
-pipeline arrive with later slices.
+History capture (the reference pipeline's ``history_capture``) arrives
+with ``runtime.history``.
 """
 
 from __future__ import annotations
@@ -73,12 +87,27 @@ import torch
 from ..models.detector import (
     AnomalyDetector,
     DetectorReport,
+    DetectorState,
     detector_step,
     report_pack,
     report_unpack,
 )
 from ..ops.hashing import splitmix64_np
 from ..utils.flags import FlagEvaluator
+from .hostcopy import HostCopy
+from .selftrace import (
+    PHASE_DISPATCH,
+    PHASE_FLAG,
+    PHASE_HARVEST,
+    PHASE_HARVEST_LAG,
+    PHASE_PUT_WAIT,
+    PHASE_STAGE,
+    SPAN_DISPATCH,
+    SPAN_FLAG,
+    SPAN_HARVEST,
+    SPAN_PUT,
+    SPAN_STAGE,
+)
 from .spine import DevicePutSpine, pinned_device
 from .tensorize import SpanColumns, SpanRecord, SpanTensorizer
 
@@ -107,6 +136,12 @@ REASON_CUSUM = "cusum"
 def _pow2_ceil(n: int) -> int:
     """Smallest power of two ≥ n: the width ladder's rounding rule."""
     return 1 << max(n - 1, 0).bit_length()
+
+
+def _current_stream(device: torch.device):
+    """The calling thread's current stream on ``device`` (None off the
+    card): the stream a step dispatched now runs on."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
 
 
 @dataclass
@@ -140,6 +175,9 @@ class PipelineStats:
     overflow_keys_tenant: dict = field(default_factory=dict)
     # Times keyspace pressure crossed its high watermark.
     keyspace_pressure_events: int = 0
+    # Flag-time state snapshots that failed: the bundle lost its state
+    # block, the report still landed.
+    provenance_misses: int = 0
 
     def lag_p99_ms(self) -> float:
         if not self.lag_ms:
@@ -189,8 +227,12 @@ class DetectorPipeline:
         hh_candidates: int = 64,
         spine_ring: int = 0,
         spine_chunk_rows: int = 0,
+        phase_observe: Callable[[str, float], None] | None = None,
+        selftrace=None,
         tenant_of: Callable[[str], str] | None = None,
         tenant_quota_rows_s: float = 0.0,
+        provenance=None,
+        explain_ring: int = 64,
         keyspace_enable: bool = False,
         keyspace_high_watermark: float = 0.85,
         keyspace_low_watermark: float = 0.70,
@@ -201,8 +243,15 @@ class DetectorPipeline:
     ):
         self.detector = detector
         self.flags = flags or FlagEvaluator()
+        # Self-telemetry: per-phase seconds and sampled batch traces.
+        self.phase_observe = phase_observe
+        self._selftrace = selftrace
         # The detector's device with its index: worker threads set it.
         self._device = pinned_device(detector.device)
+        # The stream the last step was dispatched on (under
+        # _dispatch_lock): a state snapshot from another thread orders
+        # its copy on it, whatever that thread's current stream is.
+        self._step_stream = None
         self.on_report = on_report
         self.tensorizer = SpanTensorizer(
             num_services=detector.config.num_services, batch_size=batch_size
@@ -303,6 +352,14 @@ class DetectorPipeline:
         self._hh_cands: dict[int, deque] = {}
         self._anomaly_ring: deque = deque(maxlen=64)
         self.exemplars_captured = 0
+        # Evidence bundles: the ring rides query_meta; the export queue
+        # (bounded, drop-oldest) is drained by take_explain_exports.
+        # explanations_built counts this process's builds and is never
+        # restored.
+        self._provenance = provenance
+        self._explain_ring: deque = deque(maxlen=max(int(explain_ring), 1))
+        self._explain_export: deque = deque(maxlen=max(int(explain_ring), 1))
+        self.explanations_built = 0
         # The async harvester: reads reports off the pump thread.
         self.harvest_async = harvest_async
         self._harvest_wake = threading.Event()
@@ -627,18 +684,20 @@ class DetectorPipeline:
         else:
             cols = SpanColumns.concat(parts)
             self._capture_candidates(cols)
+            # The sampling gate: None rides the path for unsampled batches.
+            trace = self._selftrace.begin() if self._selftrace is not None else None
             if self._spine is not None:
                 # The ring is the backpressure: past ``depth`` staged
                 # batches the pump dispatches the head, waiting for it.
                 while self._spine.pending() >= self._spine.depth:
                     self._pump_spine(force_wait=True)
-                self._spine.stage(cols, width, t_now, t_oldest)
+                self._spine.stage(cols, width, t_now, t_oldest, trace=trace)
                 self._pump_spine()
             else:
                 batch = self.tensorizer.pack_columns(cols, width=width)
                 self._dispatch_batch(
                     lambda: self.detector.observe_packed(batch, t_now),
-                    t_now, t_oldest, cols, batch.num_valid,
+                    t_now, t_oldest, cols, batch.num_valid, trace=trace,
                 )
         if self.harvest_async:
             self._harvest_wake.set()
@@ -650,12 +709,16 @@ class DetectorPipeline:
                 keep = 1 if self._pending else 0
             self._maybe_sync_harvest(keep=keep)
 
-    def _dispatch_batch(self, step: Callable[[], torch.Tensor], t_now, t_oldest, cols, n_valid: int) -> None:
+    def _dispatch_batch(
+        self, step: Callable[[], torch.Tensor], t_now, t_oldest, cols, n_valid: int, trace=None
+    ) -> None:
         """Run ``step`` (one detector step, returning the flat report)
         under ``_dispatch_lock`` — the one place the pump advances the
         state — and start the report's copy to pinned host memory."""
         self._last_dispatch = time.monotonic()
+        t0 = time.perf_counter()
         with self._dispatch_lock:
+            self._step_stream = _current_stream(self._device)
             flat = step()
         if flat.is_cuda:
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -664,10 +727,17 @@ class DetectorPipeline:
             ready.record()
         else:
             host, ready = flat, None
+        dispatch_dt = time.perf_counter() - t0
+        if self.phase_observe is not None:
+            self.phase_observe(PHASE_DISPATCH, dispatch_dt)
+        if trace is not None:
+            trace.span(SPAN_DISPATCH, dispatch_dt)
+            trace.attrs.append(("batch.rows", str(int(n_valid))))
         self.stats.batches += 1
         self.stats.spans += n_valid
         with self._inflight_lock:
-            self._inflight.append((t_now, t_oldest, host, ready, cols))
+            # The batch's self-trace (or None) rides to the harvester.
+            self._inflight.append((t_now, t_oldest, host, ready, cols, trace))
             # At most two in flight: an older report is dropped unread.
             while len(self._inflight) > 2:
                 self._inflight.popleft()
@@ -686,6 +756,15 @@ class DetectorPipeline:
         staged = self._spine.take(wait=must_wait)
         if staged is None:
             return False
+        if self.phase_observe is not None:
+            self.phase_observe(PHASE_STAGE, staged.stage_dur)
+            self.phase_observe(PHASE_PUT_WAIT, staged.wait_s)
+        if staged.trace is not None:
+            staged.trace.span(SPAN_STAGE, staged.stage_dur)
+            staged.trace.span(
+                SPAN_PUT, staged.wait_s,
+                attrs=(("overlap.hit", str(int(staged.wait_s == 0.0))),),
+            )
         device = self._device
 
         def step() -> torch.Tensor:
@@ -696,7 +775,9 @@ class DetectorPipeline:
             finally:
                 self._spine.release(staged)
 
-        self._dispatch_batch(step, staged.t_now, staged.t_oldest, staged.cols, staged.cols.rows)
+        self._dispatch_batch(
+            step, staged.t_now, staged.t_oldest, staged.cols, staged.cols.rows, trace=staged.trace
+        )
         return True
 
     def _maybe_sync_harvest(self, keep: int) -> None:
@@ -928,6 +1009,44 @@ class DetectorPipeline:
         self._process_report(item)
         return True
 
+    # -- state snapshots ----------------------------------------------
+
+    @property
+    def step_stream(self):
+        """The stream the steps are dispatched on (None off the card, or
+        before the first dispatch)."""
+        return self._step_stream
+
+    def state_snapshot(self) -> tuple[dict[str, np.ndarray], float | None]:
+        """A consistent host copy of the whole detector state, and the
+        window clock, as of the steps dispatched so far.
+
+        Under ``_dispatch_lock`` the copy is only enqueued, on the
+        stream the steps run on (named explicitly: the calling thread's
+        current stream may be another), so no later step can tear it
+        and the pump never waits behind the steps in flight; the wait
+        for it runs after the lock is released. Returns numpy arrays by
+        ``DetectorState`` field name with the state's dtypes (int32
+        banks, float32 heads, a 0-d int32 ``step_idx``). Raises if the
+        copy fails."""
+        det = self.detector
+        copy = HostCopy(det.state)
+        with self._dispatch_lock:
+            copy.start(det.state, stream=self._step_stream)
+            clock_t_prev = det.clock._t_prev
+        return dict(zip(DetectorState._fields, copy.numpy())), clock_t_prev
+
+    def _provenance_snapshot(self) -> dict | None:
+        """The flag-time state the evidence bundles cite. A failed copy
+        costs the bundles their state block (counted in
+        ``stats.provenance_misses``), never the report."""
+        try:
+            return self.state_snapshot()[0]
+        except Exception:  # noqa: BLE001 — evidence is advisory; the
+            # report and its anomaly event must land regardless.
+            self.stats.provenance_misses += 1
+            return None
+
     # -- query-plane capture ------------------------------------------
 
     def _capture_candidates(self, cols: SpanColumns) -> None:
@@ -949,10 +1068,14 @@ class DetectorPipeline:
                     ring = self._hh_cands[s] = deque(maxlen=self._hh_cand_max)
                 ring.extend(tail)
 
-    def _capture_exemplars(self, t_batch, cols, report, flags_np, threshold) -> list[str]:
+    def _capture_exemplars(
+        self, t_batch, cols, report, flags_np, threshold,
+        prov_state: dict | None = None, trace_id: str | None = None,
+    ) -> list[str]:
         """At flag time: link each flagged service to trace ids from the
         batch that flagged it (the first 8 bytes of the trace id as hex,
-        a Jaeger search prefix), and record one anomaly event each.
+        a Jaeger search prefix), build its evidence bundle (with
+        ``provenance``) and record one anomaly event each.
         ``exemplar_ring=0`` stops only the trace-id capture. Returns the
         trace ids captured."""
         if not flags_np.any():
@@ -987,19 +1110,50 @@ class DetectorPipeline:
                         ring.append({"trace_id": tid, "t": now, "signal": sig})
                 self.exemplars_captured += len(traces)
                 captured.extend(traces)
+                bundle_ref = None
+                if self._provenance is not None:
+                    # The bundle's seq is the step index of the flag-time
+                    # snapshot, so its id is a function of replicated
+                    # coordinates; its candidates are the top-k query's.
+                    seq = (
+                        int(prov_state["step_idx"])
+                        if prov_state is not None and "step_idx" in prov_state
+                        else self.stats.flag_events
+                    )
+                    names = self.tensorizer.service_names
+                    cands = list(dict.fromkeys(
+                        reversed(self._hh_cands.get(i) or ())
+                    ))[: self._hh_cand_max]
+                    bundle = self._provenance.build(
+                        t_batch=float(t_batch),
+                        seq=seq,
+                        service=i,
+                        label=names[i] if i < len(names) else f"svc-{i}",
+                        signals=signals,
+                        exemplars=traces,
+                        state=prov_state,
+                        hh_candidates=cands,
+                        trace_id=trace_id,
+                    )
+                    self._explain_ring.append(bundle)
+                    self._explain_export.append(bundle)
+                    self.explanations_built += 1
+                    bundle_ref = bundle["id"]
                 self._anomaly_ring.append({
                     "t": now,
                     "t_batch": float(t_batch),
                     "service": i,
                     "signals": signals,
                     "exemplars": traces,
-                    "bundle": None,
+                    "bundle": bundle_ref,
                 })
         return captured
 
     def query_meta(self) -> dict:
         """JSON-able query-plane block: exemplar rings, recent anomaly
-        events and top-k candidate keys (most recent first)."""
+        events, top-k candidate keys (most recent first) and evidence
+        bundles. The block is the reference package's: either package
+        restores the other's."""
         with self._query_lock:
             return {
                 "exemplars": {
@@ -1011,12 +1165,14 @@ class DetectorPipeline:
                     for svc, ring in self._hh_cands.items()
                 },
                 "exemplars_captured": self.exemplars_captured,
+                "explains": [dict(b) for b in self._explain_ring],
+                "explanations_built": self.explanations_built,
             }
 
     def restore_query_meta(self, block: dict) -> None:
         """Refill the query-plane rings from a :meth:`query_meta` block.
-        ``exemplars_captured`` is this process's own counter and is not
-        restored."""
+        ``exemplars_captured`` and ``explanations_built`` are this
+        process's own counters and are not restored."""
         if not block:
             return
         with self._query_lock:
@@ -1036,17 +1192,38 @@ class DetectorPipeline:
                     # query_meta lists most recent first; rings keep
                     # arrival order.
                     ring.extend(int(c) for c in reversed(crcs))
+            for b in (block.get("explains") or [])[-self._explain_ring.maxlen:]:
+                self._explain_ring.append(dict(b))
+
+    def take_explain_exports(self) -> list[dict]:
+        """Drain the bundles awaiting OTLP log export (bounded,
+        drop-oldest, so a stalled exporter never grows the queue)."""
+        with self._query_lock:
+            out = list(self._explain_export)
+            self._explain_export.clear()
+        return out
 
     # -- report processing --------------------------------------------
 
     def _process_report(self, item) -> None:
-        t_batch, t_oldest, host, ready, cols = item
+        t_batch, t_oldest, host, ready, cols, trace = item
         self._note_outcome(skipped=False)
         probe = self._start_rtt_probe() if self.rtt_probe else None
+        t_fetch = time.perf_counter()
         if ready is not None:
             ready.synchronize()
         report = report_unpack(host.numpy(), self.detector.config)
-        self.stats.lag_ms.append((time.monotonic() - t_oldest) * 1e3)
+        fetch_dt = time.perf_counter() - t_fetch
+        if self._provenance is not None:
+            # Ring the head columns of every report: already host numpy.
+            self._provenance.observe_report(float(t_batch), report)
+        lag_ms = (time.monotonic() - t_oldest) * 1e3
+        self.stats.lag_ms.append(lag_ms)
+        if self.phase_observe is not None:
+            self.phase_observe(PHASE_HARVEST, fetch_dt)
+            self.phase_observe(PHASE_HARVEST_LAG, lag_ms / 1e3)
+        if trace is not None:
+            trace.span(SPAN_HARVEST, fetch_dt)
         if probe is not None:
             probe["thread"].join(timeout=10.0)
             self.stats.rtt_ms.append(probe["res"].get("rtt", float("nan")))
@@ -1067,12 +1244,35 @@ class DetectorPipeline:
             flags_np = (z > threshold) | cusum_alarm
         flagged: list[str] = []
         if flags_np.any():
+            t_flag = time.perf_counter()
             self.stats.flag_events += 1
             names = self.tensorizer.service_names
             flagged = [
                 names[i] if i < len(names) else f"svc-{i}"
                 for i in np.nonzero(flags_np)[0]
             ]
-            self._capture_exemplars(t_batch, cols, report, flags_np, threshold)
+            prov_state = self._provenance_snapshot() if self._provenance is not None else None
+            links = self._capture_exemplars(
+                t_batch, cols, report, flags_np, threshold,
+                prov_state=prov_state,
+                trace_id=trace.trace_id.hex() if trace is not None else None,
+            )
+            flag_dt = time.perf_counter() - t_flag
+            if self.phase_observe is not None:
+                self.phase_observe(PHASE_FLAG, flag_dt)
+            if trace is not None:
+                # The flag span links the exemplar shop traces of this
+                # batch.
+                trace.span(
+                    SPAN_FLAG, flag_dt,
+                    attrs=(("flagged.services", ",".join(flagged)),),
+                    links=tuple(links),
+                )
+        if trace is not None:
+            try:
+                self._selftrace.finish(trace)
+            except Exception:  # noqa: BLE001 — the trace is advisory,
+                # the report is the product.
+                pass
         if self.on_report is not None:
             self.on_report(t_batch, report, flagged)

@@ -62,15 +62,18 @@ class StagedBatch:
     device lanes out once the stager has issued the copy.
 
     ``stage_dur`` and ``wait_s`` are this batch's own pack+copy-issue
-    seconds and the seconds a waiting ``take`` spent on it."""
+    seconds and the seconds a waiting ``take`` spent on it. ``trace`` is
+    the batch's sampled self-trace (``runtime.selftrace.BatchTrace``) or
+    None: carried to dispatch, never read on the stager thread."""
 
     __slots__ = (
         "cols", "width", "t_now", "t_oldest", "lanes", "copied", "slot",
-        "error", "ready", "stage_dur", "wait_s",
+        "error", "ready", "stage_dur", "wait_s", "trace",
     )
 
-    def __init__(self, cols: SpanColumns, width: int, t_now, t_oldest):
+    def __init__(self, cols: SpanColumns, width: int, t_now, t_oldest, trace=None):
         self.cols = cols
+        self.trace = trace
         self.width = width
         self.t_now = t_now
         self.t_oldest = t_oldest
@@ -159,11 +162,11 @@ class DevicePutSpine:
 
     # -- pump-thread API ----------------------------------------------
 
-    def stage(self, cols: SpanColumns, width: int, t_now, t_oldest) -> None:
+    def stage(self, cols: SpanColumns, width: int, t_now, t_oldest, trace=None) -> None:
         """Queue one assembled batch for pack + copy. Never blocks: the
         pump bounds the ring by dispatching the head before staging past
-        ``depth``."""
-        staged = StagedBatch(cols, int(width), t_now, t_oldest)
+        ``depth``. ``trace`` rides the staged batch to dispatch."""
+        staged = StagedBatch(cols, int(width), t_now, t_oldest, trace)
         with self._work:
             if self._stop:
                 raise SpineError("spine is closed")
