@@ -87,6 +87,24 @@ lock hold and wall, the provenance snapshot and bundle build per flag,
 the ``/metrics`` scrape, the tracer's cost at sample 0.01 and 1.0, and
 querybench at the default config.
 
+The time-travel tier and the counterfactual loop follow. ``phase_history``
+records the native legs' bodies (64 clean and 4 faulty batches at a
+virtual 1 s a batch, so the 1 s rung folds into one 60 s record) through
+``submit_columnar`` → spine → async harvester with
+``runtime.timetravel.TimeTravel`` ticked after each batch (span capture
+on), at B = 2048 (the fused-update kernel) and 65536 (the CMS-histogram
+kernel), with a twin run without the tier; the recorded span frames must
+equal the dispatched columns, every 60 s record the fold of its 60
+children, the replay through ``build_shadow_pipeline`` and a
+transform-less ``ShadowVerifier`` the recording's flags bit for bit, and
+the ranged ``/query/*`` documents of the card's engine those of an engine
+over a CPU copy of the state. ``phase_quality`` runs qualbench on the
+card and on the CPU (per scenario the same time to detect, warm-up false
+flags and FP rate); ``phase_mitigation`` runs mitigbench's closed loop
+and its shadow leg on the card with every gate held. They print the
+replay and shadow speedups, the writer's lock hold and wall per tick,
+the bytes on disk, the capture's cost, and TTD and TTM per scenario.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -2775,6 +2793,384 @@ def phase_read_side(device, results):
     return out
 
 
+# -- the time-travel tier and the counterfactual loop ----------------------------------
+
+HIST_DIR = ROOT / "build" / "chip_smoke_history"
+HIST_DT_S = 1.0  # virtual seconds between batches: one shortest window each
+E2E_SHAPE = {2048: (40, 4, 1), 65536: (24, 3, 8)}  # the e2e legs' body sets, shared
+
+
+def pct(xs, q) -> float | None:
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if len(xs) else None
+
+
+def history_record(device, cfg, width, n_warm, n_fault, directory, capture=True):
+    """One recording run on the native path: bodies →
+    ``decode_otlp_many`` → ``submit_columnar`` → spine (2 slots) → the
+    async harvester, at ``HIST_DT_S`` a batch. With ``capture`` the
+    time-travel tier (``runtime.timetravel.TimeTravel``: span capture on,
+    rungs (1 s, 60 s)) is ticked after each batch, with the dispatch
+    lock's holds timed; without it the same run has no tier (the cost
+    comparison)."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.history import SPAN_CAPTURE_COLUMNS
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.timetravel import TimeTravel
+
+    clean, faulty, _spans = e2e_bodies(width, *E2E_SHAPE[width])
+    bpb = E2E_SHAPE[width][2]
+    n = n_warm + n_fault
+    scratch = native.alloc_scratch(*native.scratch_dims(
+        max(sum(len(b) for b in batch_bodies(clean, faulty, k, n_warm, bpb)) for k in range(n)), bpb))
+    verdicts: dict = {}
+    pipe = DetectorPipeline(
+        AnomalyDetector(cfg, device=device),
+        on_report=lambda t, rep, names: verdicts.__setitem__(
+            round(float(t), 6), tuple(bool(f) for f in np.asarray(rep.flags))),
+        batch_size=width, spine_ring=2, harvest_async=True,
+    )
+    tt = lock = None
+    dispatched: list = []
+    if capture:
+        tt = TimeTravel(pipe, str(directory), rungs=(1.0, 60.0), capture_spans=True, span_queue_max=4 * n,
+                        query={"max_staleness_s": 1e9})
+        lock = pipe._dispatch_lock = TimedLock(pipe._dispatch_lock)
+        writer_capture = pipe.history_capture
+
+        def capture_and_keep(cols, t):
+            dispatched.append(({c: np.array(getattr(cols, c), copy=True) for c in SPAN_CAPTURE_COLUMNS}, t))
+            writer_capture(cols, t)
+
+        pipe.history_capture = capture_and_keep
+    holds, tick_ms = [], []
+    wall0 = time.time()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for k in range(n):
+        cols, rows = native.decode_otlp_many(batch_bodies(clean, faulty, k, n_warm, bpb), MONITORED_ATTR_KEYS,
+                                             scratch=scratch, threads=decode_threads())
+        pipe.submit_columnar(cols, copy=True)
+        pipe.pump(k * HIST_DT_S)
+        if tt is not None:
+            # Only the tick takes the dispatch lock here: the pump has
+            # returned, and the async harvester takes no lock.
+            h0, tk = len(lock.held_ms), time.perf_counter()
+            tt.tick(now=wall0 + k * HIST_DT_S)
+            tick_ms.append((time.perf_counter() - tk) * 1e3)
+            holds += lock.held_ms[h0:]
+    pipe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    kernel = "fused_update" if cfg.sketch_impl is None else "cms_hist"
+    check(launches[kernel] == n, f"{kernel} launched {launches[kernel]} times in {n} recorded batches")
+    check(len(verdicts) + pipe.stats.reports_skipped == n,
+          f"{len(verdicts)} reports + {pipe.stats.reports_skipped} skipped of {n}")
+    rec = dict(pipe=pipe, tt=tt, verdicts=verdicts, dispatched=dispatched, wall=wall, launches=launches[kernel],
+               holds_ms=holds, tick_ms=tick_ms, wall0=wall0, n=n)
+    if tt is not None:
+        tt.tick(now=wall0 + n * HIST_DT_S)
+        pipe.history_capture = None
+        tt.close()
+    pipe.close()
+    return rec
+
+
+def live_beside_shadow(device, cfg, width, verifier, now, n=100, pace_s=0.01):
+    """The live native leg paced at one batch every ``pace_s`` (spine +
+    async harvester), alone and with a thread replaying the recorded
+    corpus through ``verifier`` (the shadow pre-flight, a second
+    pipeline on the same card) for as long as the live leg runs; in
+    turns alone, beside, alone, beside. The live state must be the same
+    bits either way (the shadow never touches it); the lag p99 of each
+    run is the cost of a shadow replay to the live path."""
+    import threading
+
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    clean, _faulty, _spans = e2e_bodies(width, *E2E_SHAPE[width])
+    bpb = E2E_SHAPE[width][2]
+    scratch = native.alloc_scratch(*native.scratch_dims(max(len(b) for b in clean) * bpb, bpb))
+
+    def run(beside: bool):
+        pipe = DetectorPipeline(AnomalyDetector(cfg, device=device), batch_size=width, spine_ring=2,
+                                harvest_async=True)
+        stop, verdicts = threading.Event(), []
+
+        def shadow_loop():
+            while not stop.is_set():
+                verdicts.append(verifier.verify(SLOW, None, now=now))
+
+        th = threading.Thread(target=shadow_loop, name="shadow-replay") if beside else None
+        if th is not None:
+            th.start()
+        t0 = time.perf_counter()
+        for k in range(n):
+            delay = t0 + k * pace_s - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            cols, _rows = native.decode_otlp_many(batch_bodies(clean, clean, k, n, bpb), MONITORED_ATTR_KEYS,
+                                                  scratch=scratch, threads=decode_threads())
+            pipe.submit_columnar(cols, copy=True)
+            pipe.pump(k * DT_S)
+        pipe.drain()
+        wall = time.perf_counter() - t0
+        stop.set()
+        if th is not None:
+            th.join(timeout=120.0)
+            check(not th.is_alive(), "the shadow thread did not stop")
+        pipe.close()
+        check(all(v.batches > 0 and v.reason != "error" for v in verdicts), "a shadow replay failed")
+        return dict(state=state_to_numpy(pipe.detector.state), lag_p99_ms=pipe.stats.lag_p99_ms(), wall_s=wall,
+                    replays=len(verdicts), skipped=pipe.stats.reports_skipped)
+
+    runs = [run(False), run(True), run(False), run(True)]
+    for r in runs[1:]:
+        same_bits(r["state"], runs[0]["state"], f"the live state beside a shadow replay (B={width})")
+    out = dict(pace_s=pace_s, batches=n, alone_lag_p99_ms=[runs[0]["lag_p99_ms"], runs[2]["lag_p99_ms"]],
+               beside_lag_p99_ms=[runs[1]["lag_p99_ms"], runs[3]["lag_p99_ms"]],
+               replays=[runs[1]["replays"], runs[3]["replays"]], wall_s=[r["wall_s"] for r in runs])
+    check(min(out["replays"]) >= 1, "no shadow replay ran beside the live leg")
+    print(f"live B={width} paced at {pace_s * 1e3:.0f} ms a batch ({width / pace_s:.0f} spans/s offered), "
+          f"{n} batches: lag p99 alone {out['alone_lag_p99_ms'][0]:.3f} / {out['alone_lag_p99_ms'][1]:.3f} ms, "
+          f"beside a looping shadow replay {out['beside_lag_p99_ms'][0]:.3f} / {out['beside_lag_p99_ms'][1]:.3f} ms "
+          f"({out['replays']} replays of the corpus); the live state the same bits either way ({gpu_line()})")
+    return out
+
+
+def history_leg(device, impl, width, n_warm, n_fault, results):
+    """The time-travel tier on the card at the default ``DetectorConfig``
+    (``sketch_impl=impl``): record (capture on and off, in turns), then
+    read back the span frames, check the ladder's fold, replay the corpus
+    through ``build_shadow_pipeline`` (``replaybench.replay``) and a
+    transform-less ``ShadowVerifier``, and hold the ranged query
+    documents of the card's engine against a CPU snapshot's."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_from_numpy, state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import history, replaybench, shadow
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.query import QueryEngine, dispatch
+    from opentelemetry_demo_tpu_torch.runtime.timetravel import snapshot_fn
+
+    cfg = DetectorConfig(sketch_impl=impl)
+    kernel = "fused_update" if impl is None else "cms_hist"
+    base = HIST_DIR / f"b{width}"
+    shutil.rmtree(base, ignore_errors=True)
+    # In turns: the first run of each pays first-use costs; the numbers
+    # kept are the second run's.
+    runs = [history_record(device, cfg, width, n_warm, n_fault, base / "rec0"),
+            history_record(device, cfg, width, n_warm, n_fault, None, capture=False)]
+    rec = history_record(device, cfg, width, n_warm, n_fault, base / "rec1")
+    plain = history_record(device, cfg, width, n_warm, n_fault, None, capture=False)
+    n, directory = rec["n"], str(base / "rec1")
+    check(runs[0]["verdicts"] == {t: f for t, f in rec["verdicts"].items() if t in runs[0]["verdicts"]},
+          "two recording runs flagged differently")
+    store = history.HistoryStore(directory)
+    reader = history.HistoryReader(store, rungs=(1.0, 60.0))
+    # 1. The span frames read back are the columns that were dispatched.
+    back = list(reader.span_batches())
+    check(len(back) == len(rec["dispatched"]) == n, f"{len(back)} span frames for {n} dispatched batches")
+    for (arrays, t), (want, t_want) in zip(back, rec["dispatched"]):
+        check(t == t_want and all(np.asarray(arrays[c]).tobytes() == want[c].tobytes() for c in want),
+              f"span frame at t={t} differs from the dispatched columns")
+    # 2. Rung-1 records are the fold of their rung-0 children.
+    coarse = store.records(rung=1)
+    check(len(coarse) >= 1, f"no rung-1 record from {len(store.records(rung=0))} rung-0 records")
+    for parent_rec in coarse:
+        parent = store.read_frame(parent_rec).arrays
+        acc = None
+        kids = [r for r in store.records(rung=0)
+                if r.t_start >= parent_rec.t_start - 1e-6 and r.t_end <= parent_rec.t_end + 1e-6]
+        check(len(kids) == 60, f"rung-1 record over {len(kids)} rung-0 records")
+        for r in kids:
+            acc = history.merge_record_arrays(acc, store.read_frame(r).arrays)
+        for k, v in parent.items():
+            check(np.asarray(v).tobytes() == acc[k].tobytes(), f"rung-1 {k} differs from the fold of its children")
+    # 3. Replay through the shared constructor: bit-identical flags.
+    _kernels.reset_launches()
+    replayed, virtual, replay_wall, batches = replaybench.replay(directory, device, config=cfg, batch_size=width)
+    replay_launches = _kernels.LAUNCHES[kernel]
+    check(batches == n and len(replayed) == n, f"replayed {batches} batches, {len(replayed)} verdicts of {n}")
+    for t, flags in rec["verdicts"].items():
+        check(replayed[t] == flags, f"replayed flags at t={t}: {replayed[t]} vs recorded {flags}")
+    flagged = sum(1 for f in replayed.values() if any(f))
+    check(flagged > 0, "the replayed corpus flagged nothing")
+    # 4. The shadow verifier without a transform gives the same verdicts.
+    recs = reader.span_records()
+    now = recs[-1].t_end + 1.0
+    verifier = shadow.ShadowVerifier(reader, cfg, batch_size=width, window_s=now - recs[0].t_start + 1.0,
+                                     deadline_s=300.0, min_records=1, device=device)
+    _kernels.reset_launches()
+    v = verifier.verify(SLOW, None, now=now)
+    shadow_launches = _kernels.LAUNCHES[kernel]
+    check(v.reason != shadow.REASON_ERROR and v.batches == n, f"shadow verify: {v._replace(verdicts={})}")
+    check(v.verdicts == replayed, "the shadow's verdicts differ from the replay's")
+    beside = live_beside_shadow(device, cfg, width, verifier, now) if width == 2048 else None
+    # 5. Ranged documents: the card's engine against a CPU snapshot's.
+    pipe = rec["pipe"]
+    torch.cuda.synchronize()
+    cpu = AnomalyDetector(cfg, device="cpu")
+    cpu.state = state_from_numpy(state_to_numpy(pipe.detector.state), device="cpu")
+    cpu.clock._t_prev = pipe.detector.clock._t_prev
+    twin = DetectorPipeline(cpu, batch_size=width)
+    twin.tensorizer.adopt_names(pipe.tensorizer.service_names)
+    twin.restore_query_meta(json.loads(json.dumps(pipe.query_meta())))
+    engines = [rec["tt"].engine,
+               QueryEngine(snapshot_fn(twin), history=reader, max_staleness_s=1e9)]
+    w0 = rec["wall0"]
+    span = {"from": w0, "to": w0 + n * HIST_DT_S}
+    asks = [(p, dict(span, service=s)) for p in ("/query/cardinality", "/query/topk", "/query/zscore")
+            for s in (f"service-{SLOW:02d}", "service-03")]
+    asks += [("/query/cardinality", dict(span, service="service-03", resolution="60")),
+             ("/query/anomalies", dict(span)), ("/query/explain", dict(span)),
+             ("/query/cardinality", {"service": "service-05", "from": w0 + 10, "to": w0 + 20})]
+    sources = []
+    for path, params in asks:
+        docs = [dispatch(e, path, dict(params)) for e in engines]
+        for st, d in docs:
+            d.get("meta", {}).pop("staleness_s", None)
+        check(docs[0] == docs[1], f"{path} {params}: the card's document differs from the CPU's")
+        check(docs[0][0] == 200, f"{path} {params}: {docs[0]}")
+        sources.append(docs[0][1]["meta"]["source"])
+    st = store.stats()
+    nbytes = sum(f.stat().st_size for f in Path(directory).iterdir())
+    tick_s = sum(rec["tick_ms"]) / 1e3
+    cost = rec["wall"] / plain["wall"] - 1.0
+    capture_cost = (rec["wall"] - tick_s) / plain["wall"] - 1.0
+    out = dict(
+        width=width, impl=impl, batches=n, dt_s=HIST_DT_S, record_wall_s=rec["wall"], plain_wall_s=plain["wall"],
+        tier_cost=cost, capture_cost=capture_cost, tick_s=tick_s, record_spans_per_s=n * width / rec["wall"], plain_spans_per_s=n * width / plain["wall"],
+        lock_hold_ms=dict(p50=pct(rec["holds_ms"], 50), p99=pct(rec["holds_ms"], 99), max=max(rec["holds_ms"])),
+        tick_ms=dict(p50=pct(rec["tick_ms"], 50), p99=pct(rec["tick_ms"], 99), max=max(rec["tick_ms"])),
+        bytes_on_disk=nbytes, store=st, writer=rec["tt"].writer.stats(), rung0=len(store.records(rung=0)),
+        rung1=len(coarse), replay_speedup=virtual / replay_wall, replay_wall_s=replay_wall, replay_virtual_s=virtual,
+        flagged_batches=flagged, shadow_speedup=v.speedup, shadow_wall_s=v.wall_s, query_sources=sources,
+        launches=dict(record=rec["launches"], replay=replay_launches, shadow=shadow_launches),
+        reports_skipped=pipe.stats.reports_skipped, live_beside_shadow=beside,
+    )
+    print(f"history B={width} impl={impl}: {n} batches at {HIST_DT_S} s recorded in {rec['wall']:.3f} s "
+          f"({out['record_spans_per_s']:.0f} spans/s; without the tier {plain['wall']:.3f} s, "
+          f"{out['plain_spans_per_s']:.0f} spans/s: capture + ticks cost {cost * 100:.1f}%, capture alone "
+          f"{capture_cost * 100:.1f}% with the {tick_s:.3f} s of ticks taken out); writer tick "
+          f"lock hold p50 {out['lock_hold_ms']['p50']:.4f} ms max {out['lock_hold_ms']['max']:.4f} ms, tick wall "
+          f"p50 {out['tick_ms']['p50']:.3f} ms max {out['tick_ms']['max']:.3f} ms; {nbytes} bytes on disk "
+          f"({out['rung0']} rung-0, {out['rung1']} rung-1 records, {n} span frames) ; span frames == dispatched "
+          f"columns; rung-1 == fold of its 60 children; replay {batches} batches in {replay_wall:.4f} s = "
+          f"{out['replay_speedup']:.1f}x the recorded clock, flags bit-identical ({flagged} flagged batches); "
+          f"shadow verify == replay ({v.speedup}x); ranged documents card == CPU (sources {sorted(set(sources))}); "
+          f"{kernel} launches: record {rec['launches']}, replay {replay_launches}, shadow {shadow_launches} "
+          f"({gpu_line()})")
+    results[kernel].setdefault("launches_history", {})[f"b{width}"] = out["launches"]
+    return out
+
+
+def phase_history(device, results):
+    """The time-travel tier at full width on a virtual clock: B=2048
+    (the fused-update kernel) and 65536 (``sketch_impl="xla"``, the
+    CMS-histogram kernel), each 64 clean and 4 faulty batches (the
+    ×10 fault on ``service-07``) so that the 1 s rung folds into one
+    60 s record."""
+    t0 = time.perf_counter()
+    legs = [history_leg(device, None, 2048, 64, 4, results),
+            history_leg(device, "xla", 65536, 64, 4, results)]
+    shutil.rmtree(HIST_DIR, ignore_errors=True)
+    out = dict(legs=legs, wall_s=time.perf_counter() - t0)
+    print(f"history phase: {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_quality(device, results):
+    """qualbench at its own config (S=8, B=256, p=12, CMS 512; the
+    fused-update kernel) on the card and on the CPU: per scenario the
+    time to detect, ``false_flags_warmup`` and the FP rate must be
+    equal. On the card every scenario detects with no warm-up false
+    flag, and the FP rate stays within the reference's 0.02
+    (``tests/test_e2e_detection.py``)."""
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import qualbench
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    card = qualbench.measure_detection_quality(device=device)
+    launches = _kernels.LAUNCHES["fused_update"]
+    card_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cpu = qualbench.measure_detection_quality(device="cpu")
+    cpu_s = time.perf_counter() - t1
+    for name, got in card["ttd"].items():
+        check(got == cpu["ttd"][name], f"qualbench {name}: card {got} vs CPU {cpu['ttd'][name]}")
+        check(got["ttd_s"] is not None, f"qualbench {name}: not detected on the card ({got})")
+        check(got["false_flags_warmup"] == 0, f"qualbench {name}: warm-up false flags on the card ({got})")
+    check(card["fp_rate"] <= 0.02, f"FP rate {card['fp_rate']} on the card > 0.02")
+    check(card["paymentFailure_ttd_by_rate"] == cpu["paymentFailure_ttd_by_rate"],
+          f"payment sweep: card {card['paymentFailure_ttd_by_rate']} vs CPU {cpu['paymentFailure_ttd_by_rate']}")
+    check((card["fp_rate"], card["fp_batches"]) == (cpu["fp_rate"], cpu["fp_batches"]),
+          f"FP rate: card {card['fp_rate']} vs CPU {cpu['fp_rate']}")
+    steps = launches
+    print(f"qualbench on the card == on the CPU ({card_s:.1f} s vs {cpu_s:.1f} s, {steps} fused_update launches): "
+          + "; ".join(f"{k} ttd {v['ttd_s']} s false_flags_warmup {v['false_flags_warmup']}"
+                      for k, v in card["ttd"].items())
+          + f"; payment sweep {card['paymentFailure_ttd_by_rate']}; fp_rate {card['fp_rate']} "
+          f"({card['fp_batches']} of {card['quiet_batches']})")
+    results["fused_update"].setdefault("launches_quality", {})["qualbench"] = launches
+    return dict(card=card, cpu=cpu, card_s=card_s, cpu_s=cpu_s, launches=launches)
+
+
+def phase_mitigation(device, results):
+    """mitigbench on the card: TTM beside TTD per scenario, the rollback
+    drill and zero flips on the clean run (``measure_mitigation``); then
+    the shadow leg (``measure_shadow``): shadow == replay == recording,
+    speedup ≥ the rate target, the released act's TTM within 2× the
+    ungated one, and the refusal with zero flag writes. Every gate
+    fails the run."""
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import mitigbench
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    mit = mitigbench.measure_mitigation(device=device)
+    mit_launches = _kernels.LAUNCHES["fused_update"]
+    check(mit["mitigation_ok"], f"mitigation gate: {json.dumps(mit, default=str)[:2000]}")
+    check(mit["no_oscillation"]["ok"] and mit["no_oscillation"]["flag_writes"] == 0,
+          f"no-oscillation gate: {mit['no_oscillation']}")
+    for name, r in mit["scenarios"].items():
+        check(r["verified"] and r["flag_state_end"] == "ENABLED", f"{name}: {r}")
+    t1 = time.perf_counter()
+    _kernels.reset_launches()
+    sh = mitigbench.measure_shadow(device=device)
+    sh_launches = _kernels.LAUNCHES["fused_update"]
+    ref = sh["preflight_refusal"]
+    check(sh["shadow_identical"], "shadow verdicts != replay != recording")
+    check(sh["shadow_speedup"] >= sh["shadow_rate_target"],
+          f"shadow speedup {sh['shadow_speedup']} < {sh['shadow_rate_target']}")
+    check(sh["preflight_ttm_ratio"] is not None and sh["preflight_ttm_ratio"] <= 2.0,
+          f"released TTM ratio {sh['preflight_ttm_ratio']}")
+    check(sh["preflight_refusal_ok"] and ref["flag_writes"] == 0, f"refusal: {ref}")
+    check(sh["shadow_ok"], "the shadow leg's gate")
+    print(f"mitigbench on the card ({t1 - t0:.1f} s): " + "; ".join(
+        f"{k} ttd {r['ttd_s']} s ttm {r['time_to_mitigate_s']} s" for k, r in mit["scenarios"].items())
+        + f"; rollback drill rolled back {mit['rollback_drill']['rolled_back']} (flag "
+        f"{mit['rollback_drill']['flag_state_end']}); clean run {mit['no_oscillation']['flag_writes']} flag "
+        f"writes over {mit['no_oscillation']['quiet_batches']} batches ({mit_launches} fused_update launches)")
+    print(f"shadow leg on the card ({time.perf_counter() - t1:.1f} s): identical {sh['shadow_identical']}, "
+          f"speedup {sh['shadow_speedup']}x (target {sh['shadow_rate_target']}), TTM ungated "
+          f"{sh['preflight_baseline_ttm_s']} s vs released {sh['preflight_ttm_s']} s (ratio "
+          f"{sh['preflight_ttm_ratio']}), act→verdict {sh['preflight_verdict_s']} s; refusal: "
+          f"{ref['refused']} refused ({ref['refused_reason']}), {ref['flag_writes']} flag writes; collector keep "
+          f"ratio {sh['collector_keep_ratio']} ({sh_launches} fused_update launches) ({gpu_line()})")
+    results["fused_update"].setdefault("launches_quality", {}).update(
+        mitigbench=mit_launches, shadow=sh_launches)
+    return dict(mitigation=mit, shadow=sh, wall_s=time.perf_counter() - t0)
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -3450,6 +3846,8 @@ def main() -> int:
     doors = phase_doors(device, results)
     orders = phase_orders(device, results)
     read_side = phase_read_side(device, results)
+    time_travel = dict(history=phase_history(device, results), quality=phase_quality(device, results),
+                       mitigation=phase_mitigation(device, results))
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -3476,11 +3874,13 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
             library_ms=r["library_ms"], launches_doors=r.get("launches_doors"),
             launches_orders=r.get("launches_orders"), launches_read=r.get("launches_read"),
+            launches_history=r.get("launches_history"), launches_quality=r.get("launches_quality"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
-         "doors": doors, "orders": orders, "read_side": read_side, "state": state, "mesh": mesh,
+         "doors": doors, "orders": orders, "read_side": read_side, "time_travel": time_travel,
+         "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

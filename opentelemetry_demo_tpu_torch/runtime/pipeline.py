@@ -69,8 +69,11 @@ false, each pump drops the pending queue and the spine's staged batches
 from its z-scores when it differs from the config's ``z_threshold``; the
 CUSUM alarms keep their own thresholds.
 
-History capture (the reference pipeline's ``history_capture``) arrives
-with ``runtime.history``.
+History capture (``history_capture``, a ``runtime.history.HistoryWriter``'s
+``capture`` or None): every dispatched batch's host columns and its
+timebase, handed over just before the step on every route (the inline
+pack, the spine's staged batches). The callee copies and enqueues; the
+pump pays one copy, never an encode or a disk write.
 """
 
 from __future__ import annotations
@@ -229,6 +232,7 @@ class DetectorPipeline:
         spine_chunk_rows: int = 0,
         phase_observe: Callable[[str, float], None] | None = None,
         selftrace=None,
+        history_capture: Callable[[SpanColumns, float], None] | None = None,
         tenant_of: Callable[[str], str] | None = None,
         tenant_quota_rows_s: float = 0.0,
         provenance=None,
@@ -243,6 +247,9 @@ class DetectorPipeline:
     ):
         self.detector = detector
         self.flags = flags or FlagEvaluator()
+        # Time-travel span capture: the replay corpus (see the module
+        # docstring).
+        self.history_capture = history_capture
         # Self-telemetry: per-phase seconds and sampled batch traces.
         self.phase_observe = phase_observe
         self._selftrace = selftrace
@@ -716,6 +723,8 @@ class DetectorPipeline:
         under ``_dispatch_lock`` — the one place the pump advances the
         state — and start the report's copy to pinned host memory."""
         self._last_dispatch = time.monotonic()
+        if self.history_capture is not None:
+            self.history_capture(cols, t_now)
         t0 = time.perf_counter()
         with self._dispatch_lock:
             self._step_stream = _current_stream(self._device)

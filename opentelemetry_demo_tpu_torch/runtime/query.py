@@ -32,10 +32,15 @@ Surfaces:
 - gRPC (:class:`QueryGrpcService`, where grpcio is installed): one
   raw-bytes method carrying the same JSON documents.
 
-Range parameters (``from``/``to``) select the time-travel tier, which
-arrives with ``runtime.history``; until then a ranged query answers the
-reference's 404 "history tier not configured", and a key missing from
-the live intern table is a plain 404.
+Range parameters (``from``/``to``) select the time-travel tier
+(``history=``, a ``runtime.history.HistoryReader``): records on disk are
+merged by the sketch monoids and, when the range reaches into the live
+window, stitched to the live snapshot (``source`` says which answered:
+``history``, ``stitched`` or ``live``). With no tier a ranged query
+answers 404 "history tier not configured". A key the live intern table
+no longer knows (the keyspace plane evicted it) answers from the history
+generation that knew it (``source: "evicted"``) and is a 404 only when
+history never saw it.
 
 Self-observability: ``anomaly_query_requests_total{endpoint,code}``,
 ``anomaly_query_latency_seconds`` and ``anomaly_query_staleness_seconds``.
@@ -57,6 +62,7 @@ from ..ops.cms import cms_indices_np, cms_query_np
 from ..ops.hashing import split_hi_lo_np, splitmix64_np
 from ..ops.hll import hll_estimate_np
 from ..telemetry import metrics as tele_metrics
+from .history import HEAD_ARRAYS
 from .tensorize import EVICTED_SLOT
 
 # DetectorConfig fields ride the meta block positionally
@@ -395,9 +401,10 @@ class QueryEngine:
     timeseries targets and ``/query/cardinality`` timelines.
     ``flight_fn`` returns this process's flight-recorder ring.
 
-    The reference engine's ``history`` tier (and its evicted-key
-    fallback) arrives with ``runtime.history``; until then the range
-    methods answer its 404.
+    ``history`` (a ``runtime.history.HistoryReader`` or None) answers
+    the range methods and the evicted-key fallback from disk only;
+    ``read_observe(seconds)`` is told the wall of each history read;
+    ``evicted_lookback_s`` bounds how far back the fallback searches.
     """
 
     def __init__(
@@ -410,8 +417,14 @@ class QueryEngine:
         timeline_depth: int = 120,
         topk_default: int = 10,
         flight_fn: Callable[[], list] | None = None,
+        history=None,
+        read_observe: Callable[[float], None] | None = None,
+        evicted_lookback_s: float = 3600.0,
     ):
         self._snapshot_fn = snapshot_fn
+        self.history = history
+        self._read_observe = read_observe
+        self.evicted_lookback_s = float(evicted_lookback_s)
         self._flight_fn = flight_fn
         self._role_fn = role_fn or (lambda: "primary")
         self._epoch_fn = epoch_fn or (lambda: 0)
@@ -521,6 +534,34 @@ class QueryEngine:
             },
         }
 
+    def _evicted_answer(self, service: str, fn) -> dict | None:
+        """A key the live intern table no longer knows (evicted, its id
+        recycled) answers from the history generation that knew it,
+        labelled ``source: "evicted"``. ``fn(arrays, meta) -> data`` is
+        the live path's read function. None when history never saw the
+        name (a genuinely unknown service stays a 404)."""
+        if self.history is None:
+            return None
+        now = time.time()
+        t_from = now - self.evicted_lookback_s
+        t0 = time.perf_counter()
+        try:
+            got = self.history.service_range_state(service, t_from, now)
+        except Exception:  # noqa: BLE001 — a broken history read must
+            got = None  # not turn the honest 404 into a 500
+        finally:
+            if self._read_observe is not None:
+                self._read_observe(time.perf_counter() - t0)
+        if got is None:
+            return None
+        arrays, meta = got
+        try:
+            data = fn(arrays, meta)
+        except QueryError:
+            return None
+        data["evicted"] = True
+        return self._range_envelope(data, meta, "evicted", t_from, now)
+
     # -- endpoints ------------------------------------------------------
 
     def services(self) -> dict:
@@ -533,11 +574,28 @@ class QueryEngine:
     def topk(self, service: str, k: int | None = None, window: int = -1) -> dict:
         arrays, meta = self._snapshot()
         k = self.topk_default if k is None else k
-        return self._envelope(topk_heavy_hitters(arrays, meta, service, k, window), arrays)
+        try:
+            data = topk_heavy_hitters(arrays, meta, service, k, window)
+        except QueryError as err:
+            if err.status == 404:
+                got = self._evicted_answer(
+                    service, lambda a, m: topk_heavy_hitters(a, m, service, k, 0)
+                )
+                if got is not None:
+                    return got
+            raise
+        return self._envelope(data, arrays)
 
     def cardinality(self, service: str) -> dict:
         arrays, meta = self._snapshot()
-        svc_id = _service_id(meta, service)
+        try:
+            svc_id = _service_id(meta, service)
+        except QueryError as err:
+            if err.status == 404:
+                got = self._evicted_answer(service, lambda a, m: cardinality(a, m, service))
+                if got is not None:
+                    return got
+            raise
         data = cardinality(arrays, meta, service, svc_id=svc_id)
         with self._lock:
             data["timeline"] = [
@@ -549,7 +607,22 @@ class QueryEngine:
 
     def zscore(self, service: str) -> dict:
         arrays, meta = self._snapshot()
-        return self._envelope(zscore_state(arrays, meta, service), arrays)
+        try:
+            data = zscore_state(arrays, meta, service)
+        except QueryError as err:
+            if err.status == 404:
+                # The head state keeps the detector's window geometry:
+                # answer with the record's untouched config.
+                got = self._evicted_answer(
+                    service,
+                    lambda a, m: zscore_state(
+                        a, dict(m, config=m["native_config"]) if m.get("native_config") else m, service,
+                    ),
+                )
+                if got is not None:
+                    return got
+            raise
+        return self._envelope(data, arrays)
 
     def anomalies(self, limit: int = 20, service: str | None = None) -> dict:
         arrays, meta = self._snapshot()
@@ -561,6 +634,27 @@ class QueryEngine:
     ) -> dict:
         arrays, meta = self._snapshot()
         return self._envelope(explain(meta, limit, service, bundle), arrays)
+
+    def explain_range(
+        self, t_from: float, t_to: float,
+        limit: int = 20, service: str | None = None,
+        bundle: str | None = None,
+    ) -> dict:
+        """Evidence bundles recorded over [from, to]: meta-only reads of
+        the history's explain log, no bank decode."""
+        if self.history is None:
+            raise QueryError(404, "history tier not configured")
+        t0 = time.perf_counter()
+        try:
+            bundles = self.history.explain_events(t_from, t_to)
+        finally:
+            if self._read_observe is not None:
+                self._read_observe(time.perf_counter() - t0)
+        meta = {"query": {"explains": bundles, "explanations_built": len(bundles)}}
+        data = explain(meta, limit, service, bundle)
+        return self._range_envelope(
+            data, {"seq": 0, "records": len(bundles)}, "history", t_from, t_to,
+        )
 
     def flight(self, limit: int = 200) -> dict:
         """The flight-recorder ring, newest last. No state snapshot is
@@ -577,41 +671,191 @@ class QueryEngine:
 
     # -- time-travel range answers --------------------------------------
 
-    def _range_answer(self, t_from: float, t_to: float, resolution: float | None = None):
-        """The history tier's range read: without ``runtime.history``
-        every range answers 404, as the reference's does with no tier."""
-        raise QueryError(404, "history tier not configured")
+    def _range_answer(
+        self, t_from: float, t_to: float, resolution: float | None = None,
+    ) -> tuple[dict, dict, str]:
+        """(arrays, meta, source) over [t_from, t_to].
+
+        History records merge by the sketch monoids. When the range's
+        tail reaches into the live window, the still-filling
+        shortest-window bank (which no completed record covers yet) is
+        merged in too and the answer is labelled ``stitched``: HLL
+        max-merge makes the seam idempotent, and the CMS overlap is
+        bounded by one rung-0 span while the writer catches up. A range
+        with no surviving records that still reaches now is the plain
+        live answer (``live``)."""
+        if self.history is None:
+            raise QueryError(404, "history tier not configured")
+        if t_to <= t_from:
+            raise QueryError(400, f"empty range [{t_from}, {t_to}]")
+        t0 = time.perf_counter()
+        try:
+            got = self.history.range_state(t_from, t_to, resolution)
+        finally:
+            if self._read_observe is not None:
+                self._read_observe(time.perf_counter() - t0)
+        reaches_live = t_to >= time.time() - (self.history.rungs[0] + self.max_staleness_s)
+        if got is None:
+            if reaches_live:
+                arrays, meta = self._snapshot()
+                return arrays, meta, "live"
+            raise QueryError(
+                404,
+                f"no history for [{t_from}, {t_to}] (expired, never "
+                "recorded, or the compactor is behind)",
+            )
+        arrays, meta = got
+        if not reaches_live:
+            return arrays, meta, "history"
+        try:
+            live_arrays, live_meta = self._snapshot()
+        except QueryError:
+            return arrays, meta, "history"  # no live state: history only
+        if (
+            np.asarray(live_arrays["hll_bank"])[0, 0].shape != np.asarray(arrays["hll_bank"])[0, 0].shape
+            or np.asarray(live_arrays["cms_bank"])[0, 0].shape != np.asarray(arrays["cms_bank"])[0, 0].shape
+        ):
+            # The geometry changed since the records were written: the
+            # cells do not line up, so answer from history alone.
+            return arrays, meta, "history"
+        if int(meta.get("generation") or 0) != int(live_meta.get("generation") or 0):
+            # An eviction sweep recycled intern ids since the records
+            # were written: a slot may now hold another service, so a
+            # positional stitch would cross-attribute rows.
+            return arrays, meta, "history"
+        stitched = dict(arrays)
+        stitched["hll_bank"] = np.array(arrays["hll_bank"], copy=True)
+        stitched["cms_bank"] = np.array(arrays["cms_bank"], copy=True)
+        stitched["span_total"] = np.array(arrays["span_total"], copy=True)
+        np.maximum(
+            stitched["hll_bank"][0, 0], np.asarray(live_arrays["hll_bank"])[0, 0],
+            out=stitched["hll_bank"][0, 0],
+        )
+        stitched["cms_bank"][0, 0] += np.asarray(live_arrays["cms_bank"])[0, 0]
+        stitched["span_total"][0, 0] += float(np.asarray(live_arrays["span_total"])[0, 0])
+        # Head state: the live values are the freshest last value.
+        for name in HEAD_ARRAYS:
+            if name in live_arrays:
+                stitched[name] = np.asarray(live_arrays[name])
+        meta = dict(meta)
+        live_q = live_meta.get("query") or {}
+        meta_q = dict(meta.get("query") or {})
+        events = list(meta_q.get("anomalies") or [])
+        # Dedup by (t, service): one harvest stamps every flagged
+        # service's event with the same time.
+        seen = {(float(e.get("t") or 0.0), e.get("service")) for e in events}
+        for ev in live_q.get("anomalies") or []:
+            t = float(ev.get("t") or 0.0)
+            if t_from <= t <= t_to and (t, ev.get("service")) not in seen:
+                events.append(dict(ev))
+        meta_q["anomalies"] = sorted(events, key=lambda e: float(e.get("t") or 0.0))
+        cands = {k: list(v) for k, v in (meta_q.get("hh_candidates") or {}).items()}
+        for svc, ring in (live_q.get("hh_candidates") or {}).items():
+            seen = cands.setdefault(svc, [])
+            for c in ring:
+                if c not in seen:
+                    seen.append(c)
+        meta_q["hh_candidates"] = cands
+        meta_q["exemplars"] = dict(live_q.get("exemplars") or {})
+        meta["query"] = meta_q
+        if live_meta.get("service_names"):
+            # The live intern table is a superset of any record's.
+            meta["service_names"] = list(live_meta["service_names"])
+        return stitched, meta, "stitched"
+
+    def _range_envelope(
+        self, data: dict, meta: dict, source: str, t_from: float, t_to: float,
+    ) -> dict:
+        return {
+            "data": data,
+            "meta": {
+                "role": self._role_fn(),
+                "epoch": int(self._epoch_fn()),
+                "seq": int(meta.get("seq") or 0),
+                "source": source,
+                "resolution_s": meta.get("resolution_s"),
+                "from": t_from,
+                "to": t_to,
+                "records": meta.get("records"),
+                "skipped_corrupt": meta.get("skipped_corrupt", 0),
+                # Which intern-id generation answered, and how many
+                # records were refused for belonging to another.
+                "generation": int(meta.get("generation") or 0),
+                "skipped_generation": meta.get("skipped_generation", 0),
+            },
+        }
 
     def topk_range(
         self, service: str, t_from: float, t_to: float,
         k: int | None = None, resolution: float | None = None,
     ) -> dict:
-        return self._range_answer(t_from, t_to, resolution)
+        arrays, meta, source = self._range_answer(t_from, t_to, resolution)
+        if source == "live":
+            return self.topk(service, k=k)
+        data = topk_heavy_hitters(
+            arrays, meta, service, self.topk_default if k is None else k, window=0,
+        )
+        return self._range_envelope(data, meta, source, t_from, t_to)
 
     def cardinality_range(
         self, service: str, t_from: float, t_to: float,
         resolution: float | None = None,
     ) -> dict:
-        return self._range_answer(t_from, t_to, resolution)
+        arrays, meta, source = self._range_answer(t_from, t_to, resolution)
+        if source == "live":
+            return self.cardinality(service)
+        data = cardinality(arrays, meta, service)
+        data["timeline"] = self._history_timeline_points(service, t_from, t_to, resolution, meta)
+        return self._range_envelope(data, meta, source, t_from, t_to)
 
     def zscore_range(
         self, service: str, t_from: float, t_to: float,
         resolution: float | None = None,
     ) -> dict:
-        return self._range_answer(t_from, t_to, resolution)
+        arrays, meta, source = self._range_answer(t_from, t_to, resolution)
+        if source == "live":
+            return self.zscore(service)
+        # The head state keeps the detector's native window geometry;
+        # the range-span override applies to the merged banks only.
+        zmeta = dict(meta)
+        if meta.get("native_config"):
+            zmeta["config"] = meta["native_config"]
+        data = zscore_state(arrays, zmeta, service)
+        return self._range_envelope(data, meta, source, t_from, t_to)
 
     def anomalies_range(
         self, t_from: float, t_to: float,
         limit: int = 20, service: str | None = None,
     ) -> dict:
-        return self._range_answer(t_from, t_to)
+        """Anomaly events recorded over [from, to]: meta-only reads of
+        the record log, no bank decode."""
+        if self.history is None:
+            raise QueryError(404, "history tier not configured")
+        t0 = time.perf_counter()
+        try:
+            events, names = self.history.anomaly_events(t_from, t_to)
+        finally:
+            if self._read_observe is not None:
+                self._read_observe(time.perf_counter() - t0)
+        meta = {"service_names": names, "query": {"anomalies": events}}
+        data = anomalies(meta, limit, service)
+        return self._range_envelope(
+            data, {"seq": 0, "records": len(events)}, "history", t_from, t_to,
+        )
 
-    def explain_range(
-        self, t_from: float, t_to: float,
-        limit: int = 20, service: str | None = None,
-        bundle: str | None = None,
-    ) -> dict:
-        return self._range_answer(t_from, t_to)
+    def _history_timeline_points(
+        self, service: str, t_from: float, t_to: float,
+        resolution: float | None, meta: dict,
+    ) -> list[dict]:
+        svc_names = service_names(meta)
+        points = []
+        for p in self.history.timeline(t_from, t_to, resolution):
+            names = p.get("service_names") or svc_names
+            if service in names:
+                i = names.index(service)
+                if i < len(p["card"]):
+                    points.append({"t": p["t"], "seq": p["seq"], "estimate": p["card"][i]})
+        return points
 
     # -- Grafana simple-JSON datasource --------------------------------
 
@@ -635,14 +879,38 @@ class QueryEngine:
             if kind in ("cardinality", "cusum") and svc:
                 svc_id = _service_id(meta, svc)
                 field = "card" if kind == "cardinality" else "cusum_max"
-                # Without a history tier the series is the live ring.
+                # The true range series: history records over [from, to]
+                # first (seek + decode + estimate per record, the live
+                # ring's estimator), then the live ring for the tail the
+                # writer has not recorded yet.
+                points: list[list[float]] = []
+                newest_hist = None
+                if self.history is not None and t_from is not None:
+                    t0 = time.perf_counter()
+                    try:
+                        hist = self.history.timeline(t_from, t_to if t_to is not None else time.time())
+                    finally:
+                        if self._read_observe is not None:
+                            self._read_observe(time.perf_counter() - t0)
+                    for p in hist:
+                        # Points are stamped at record end: a record
+                        # straddling an edge would plot outside the range.
+                        if p["t"] < t_from or (t_to is not None and p["t"] > t_to):
+                            continue
+                        series = p["card"] if kind == "cardinality" else p["cusum_max"]
+                        names = p.get("service_names") or []
+                        idx = names.index(svc) if svc in names else svc_id
+                        if idx < len(series):
+                            points.append([series[idx], p["t"] * 1000.0])
+                            newest_hist = p["t"]
                 with self._lock:
-                    points = [
+                    points += [
                         [e[field][svc_id], e["t"] * 1000.0]
                         for e in self._timeline
                         if svc_id < len(e[field])
                         and (t_from is None or e["t"] >= t_from)
                         and (t_to is None or e["t"] <= t_to)
+                        and (newest_hist is None or e["t"] > newest_hist)
                     ]
                 out.append({"target": target, "datapoints": points})
             elif kind == "topk" and svc:
@@ -713,6 +981,18 @@ class QueryEngine:
         t_from, t_to = _grafana_range(body)
         ann = body.get("annotation") or {}
         data = anomalies(meta, limit=100)
+        if self.history is not None and t_from is not None:
+            # Recorded flags over the range (meta-only reads), deduped
+            # against the live ring by (t, service).
+            events, names = self.history.anomaly_events(
+                t_from, t_to if t_to is not None else time.time()
+            )
+            hist = anomalies({"service_names": names, "query": {"anomalies": events}}, limit=1000)
+            live_seen = {(ev["t"], ev["service"]) for ev in data["events"]}
+            data["events"] += [
+                ev for ev in hist["events"] if (ev["t"], ev["service"]) not in live_seen
+            ]
+            data["events"].sort(key=lambda e: -(e["t"] or 0.0))
         return [
             {
                 "annotation": ann,
