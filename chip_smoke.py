@@ -82,7 +82,10 @@ bundles as OTLP logs into the port's receiver). Each flag-time snapshot
 must equal ``state_to_numpy`` at its step bit for bit, the query
 documents the CPU's answer to the same state (and the gRPC twin's,
 where ``grpc`` imports); a snapshot taken while a step spins on another
-stream must equal the state after that step. It prints the snapshot's
+stream must equal the state after that step, and so must a checkpoint saved
+with the pipeline's ``step_stream``, and an eviction sweep must zero
+the evicted rows behind that step and leave the rest as the step left
+them. It prints the snapshot's
 lock hold and wall, the provenance snapshot and bundle build per flag,
 the ``/metrics`` scrape, the tracer's cost at sample 0.01 and 1.0, and
 querybench at the default config.
@@ -104,6 +107,26 @@ flags and FP rate); ``phase_mitigation`` runs mitigbench's closed loop
 and its shadow leg on the card with every gate held. They print the
 replay and shadow speedups, the writer's lock hold and wall per tick,
 the bytes on disk, the capture's cost, and TTD and TTM per scenario.
+
+The hot-standby and fleet tier follows (``phase_fleet``).
+``runtime.replbench.measure_failover`` runs on the card at its own
+config (S=8, p=8, CMS 512, B=256) and at the daemon's ``DetectorConfig()``
+with B=2048 and 65536: the primary ships deltas to a standby over a
+real socket, is killed (RST), and the standby promotes at epoch 1 with a
+mirror equal to the primary's last state and offsets. The B=2048 mirror
+is hydrated onto the card into a fresh detector and, beside the
+primary's own detector, takes four batches with a ×10 fault: flags and
+integer state bit for bit. The native B=2048 leg runs with a primary
+shipping to a live standby at 1.0 s and 0.05 s against a twin without
+the link, in turns. The in-process reshard drill
+(``measure_reshard``) runs on the card and on the CPU at two configs:
+``fleet_ok``, a labelled partial answer, and the victim's documents
+card = CPU. The churn soak (512 services) and the million-key soak
+(4096 services: the sketch kernel past 48 KB of shared memory) run
+through the native front door at their defaults. It prints the TTD,
+the lag p99, the bytes of a delta frame, the dispatch-lock hold per
+ship, the link's cost in spans/s, the soaks' keys/s and RSS per million
+keys.
 
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
@@ -402,6 +425,14 @@ def special_cases(rng, cfg, device):
 # so the head epilogue takes several passes, and with stats for so many
 # services that a block has room for two warps.
 MANY_SERVICES = ((2048, 64), (2048, 192), (8192, 1000))
+# Past the 1,524 services one warp's stats fit in 48 KB: the plan opts in
+# to more shared memory. At the million-key soak's geometry (B = 4096,
+# HLL p = 8, CMS 4 x 1024).
+OPT_IN_SERVICES = (2048, 4096)
+
+
+def soak_config(cfg, s):
+    return cfg._replace(num_services=s, hll_p=8, cms_width=1024)
 
 
 def k1_args(lanes):
@@ -448,7 +479,11 @@ def check_k1(cfg, device, lanes, state, what, moved=True) -> float:
 
 def phase_fused_update(cfg, device, results):
     """K1 against its plain version at B = 2048, 8192 and 65536 (the
-    widths it is timed at), on the edge cases and at many services."""
+    widths it is timed at), on the edge cases and at many services, up
+    to 4096 (past the 48 KB of shared memory a block gets without
+    opting in)."""
+    from opentelemetry_demo_tpu_torch.ops import fused
+
     rng = np.random.default_rng(1)
     worst = 0.0
     for b in (2048, 8192, 65536):
@@ -460,6 +495,11 @@ def phase_fused_update(cfg, device, results):
         c = cfg._replace(num_services=s)
         lanes = batch_lanes(rng, c, b, device, n_active=s)
         worst = max(worst, check_k1(c, device, lanes, random_state(rng, c, device), f"B={b} S={s}"))
+    for s in OPT_IN_SERVICES:
+        c = soak_config(cfg, s)
+        lanes = batch_lanes(rng, c, 4096, device, n_active=s)
+        worst = max(worst, check_k1(c, device, lanes, random_state(rng, c, device),
+                                    f"B=4096 S={s} p=8 Wc=1024 (shared memory {fused.launch_plan(4096, s).smem_bytes} B)"))
     results["fused_update"] = {"max_abs_err": worst}
 
 
@@ -2085,7 +2125,7 @@ def orders_resume(device, clean_s=12.0, flood_s=2.0, save_at=80, pill_at=50, tom
         b.pump(k * ORDER_DT)
     path = str(CKPT_DIR / "orders_resume")
     checkpoint.save(path, b.detector, offsets=offsets, service_names=b.tensorizer.service_names,
-                    dispatch_lock=b._dispatch_lock)
+                    dispatch_lock=b._dispatch_lock, stream=b.step_stream)
     b.drain()
     spans_b = b.stats.spans
     check(src_b.decode_failures == 1 and len(src_b.quarantine) == 1 and src_b.quarantine[0][3] == b"\xff" * 4,
@@ -2634,64 +2674,196 @@ def read_side_leg(device, impl, width, n_warm, n_fault, bodies_per_batch, sink, 
             grpc_svc.stop()
 
 
-def snapshot_order(device, spin_cycles=200_000_000):
-    """A step dispatched on a side stream behind ~100 ms of spin; while it
-    is still queued, another thread (whose current stream is the default
-    one) takes a state snapshot. The snapshot, enqueued on the step's
-    stream under the dispatch lock, must equal the state after that step,
-    and the lock must be held for a small part of the spin."""
+def behind_a_spun_step(device, reader, feed, what, warm=None, spin_cycles=200_000_000):
+    """One step on each stream first, then a step dispatched on a side
+    stream behind ~100 ms of spin; while it is still queued, another
+    thread (whose current stream is the default one) runs
+    ``reader(pipe)`` under a timed dispatch lock. ``feed(pipe, k)``
+    submits batch ``k``; ``warm(pipe)`` runs once after the warm-up
+    steps (a reader's first use of a kernel or a buffer size waits for
+    the card, once per process). Returns the pipeline (open: the caller closes
+    it), the state before the spun step, the reader's result, the lock
+    hold and the pump's time."""
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
     import threading
 
     from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
-    from opentelemetry_demo_tpu_torch.models.detector import DetectorState, state_to_numpy
-    from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
     from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
 
-    rng = np.random.default_rng(31)
     det = AnomalyDetector(DetectorConfig(), device=device)
     pipe = DetectorPipeline(det, batch_size=2048, harvest_interval_s=1e9)
+    side = torch.cuda.Stream(device)
+    # One step on each stream first, so neither the allocator's pools
+    # nor the pinned buffers are new when the spun step goes out.
+    for k, stream in enumerate((torch.cuda.current_stream(device), side)):
+        with torch.cuda.stream(stream):
+            feed(pipe, k)
+            pipe.pump(k * DT_S)
+            pipe.drain()
+    if warm is not None:
+        warm(pipe)
+    torch.cuda.synchronize()
+    before = state_to_numpy(det.state)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(spin_cycles)
+        t0 = time.perf_counter()
+        feed(pipe, 2)
+        pipe.pump(2 * DT_S)
+        pump_ms = (time.perf_counter() - t0) * 1e3
+        probe = torch.cuda.Event()
+        probe.record(side)
+    check(pipe.step_stream == side, "the pipeline did not record the step's stream")
+    running = not probe.query()
+    timed = pipe._dispatch_lock = TimedLock(pipe._dispatch_lock)
+    out = {}
+    th = threading.Thread(target=lambda: out.update(got=reader(pipe)), name=f"{what}-reader")
+    th.start()
+    th.join(timeout=60.0)
+    pipe._dispatch_lock = timed.lock
+    check(running, f"{what}: the step was done before the reader enqueued (the pump took {pump_ms:.3f} ms "
+                   f"behind {spin_cycles} cycles of spin)")
+    check("got" in out, f"{what}: the reader thread did not finish")
+    torch.cuda.synchronize()
+    hold = timed.held_ms[-1]
+    check(hold < 5.0, f"{what}: held the dispatch lock {hold:.3f} ms behind a ~100 ms spin")
+    return pipe, before, out["got"], hold, pump_ms
+
+
+def snapshot_order(device):
+    """A state snapshot taken from another thread while a step spins on a
+    side stream: enqueued on the step's stream under the dispatch lock,
+    it must equal the state after that step, and the lock must be held
+    for a small part of the spin."""
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState, state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
+
+    rng = np.random.default_rng(31)
+    pipe, before, snap, hold, pump_ms = behind_a_spun_step(
+        device, lambda p: p.state_snapshot(), lambda p, k: p.submit_columns(make_columns(rng, 2048)), "snapshot")
     try:
-        side = torch.cuda.Stream(device)
-        # One step on each stream first, so neither the allocator's pools
-        # nor the pinned buffers are new when the spun step goes out.
-        for k, stream in enumerate((torch.cuda.current_stream(device), side)):
-            with torch.cuda.stream(stream):
-                pipe.submit_columns(make_columns(rng, 2048))
-                pipe.pump(k * DT_S)
-                pipe.drain()
-        torch.cuda.synchronize()
-        before = state_to_numpy(det.state)
-        with torch.cuda.stream(side):
-            torch.cuda._sleep(spin_cycles)
-            t0 = time.perf_counter()
-            pipe.submit_columns(make_columns(rng, 2048))
-            pipe.pump(2 * DT_S)
-            pump_ms = (time.perf_counter() - t0) * 1e3
-            probe = torch.cuda.Event()
-            probe.record(side)
-        check(pipe.step_stream == side, "the pipeline did not record the step's stream")
-        running = not probe.query()
-        timed = pipe._dispatch_lock = TimedLock(pipe._dispatch_lock)
-        out = {}
-        th = threading.Thread(target=lambda: out.update(snap=pipe.state_snapshot()), name="snapshot-reader")
-        th.start()
-        th.join(timeout=60.0)
-        pipe._dispatch_lock = timed.lock
-        check(running, f"the step was done before the snapshot was enqueued (the pump took {pump_ms:.3f} ms "
-                       f"behind {spin_cycles} cycles of spin)")
-        check("snap" in out, "the snapshot thread did not finish")
-        torch.cuda.synchronize()
-        after = state_to_numpy(det.state)
-        arrays = out["snap"][0]
+        after = state_to_numpy(pipe.detector.state)
         check(int(after.step_idx) == int(before.step_idx) + 1, "the spun step did not run")
-        same_bits(DetectorState(**arrays), after, "snapshot behind a spinning step vs the state after it")
+        same_bits(DetectorState(**snap[0]), after, "snapshot behind a spinning step vs the state after it")
         check(before.hll_bank.tobytes() != after.hll_bank.tobytes(), "the step left the banks unchanged")
-        hold = timed.held_ms[-1]
-        check(hold < 5.0, f"the snapshot held the dispatch lock {hold:.3f} ms behind a ~100 ms spin")
         print(f"snapshot order: a step on a side stream behind ~100 ms of spin, snapshot taken from another "
               f"thread while it ran: == the state after the step (step_idx {int(after.step_idx)}); lock held "
               f"{hold:.4f} ms; the pump took {pump_ms:.3f} ms")
-        return dict(hold_ms=hold, pump_ms=pump_ms, running=running)
+        return dict(hold_ms=hold, pump_ms=pump_ms, running=True)
+    finally:
+        pipe.close()
+
+
+def save_order(device):
+    """``checkpoint.save`` from another thread while a step spins on a
+    side stream, given the pipeline's ``step_stream``: the saved file's
+    state must equal the state after that step."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime import checkpoint
+    from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
+
+    rng = np.random.default_rng(32)
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "save_order")
+
+    def save(pipe):
+        checkpoint.save(path, pipe.detector, service_names=pipe.tensorizer.service_names,
+                        dispatch_lock=pipe._dispatch_lock, stream=pipe.step_stream)
+
+    pipe, _before, _, hold, pump_ms = behind_a_spun_step(
+        device, save, lambda p, k: p.submit_columns(make_columns(rng, 2048)), "save")
+    try:
+        after = state_to_numpy(pipe.detector.state)
+        check(int(after.step_idx) == 3, f"the spun step did not run (step_idx {int(after.step_idx)})")
+        saved, _meta = checkpoint.load(path, DetectorConfig(), device="cpu")
+        same_bits(state_to_numpy(saved.state), after, "checkpoint saved behind a spinning step vs the state after it")
+        print(f"save order: checkpoint.save from another thread while a step spun on a side stream: the file "
+              f"== the state after the step; lock held {hold:.4f} ms; the pump took {pump_ms:.3f} ms")
+        return dict(hold_ms=hold, pump_ms=pump_ms)
+    finally:
+        pipe.close()
+
+
+def sweep_order(device, n_services=20, n_evict=4):
+    """An eviction sweep (``KeyspaceManager.evict_idle``, with a history
+    fold) from another thread while a step that writes the evicted rows
+    spins on a side stream: the evicted rows must be zero and every
+    other row equal a twin's state after the same steps, with no sweep;
+    the fold record must hold the evicted rows as the step left them."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState, state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime.keyspace import MERGE_HEAD_ROWS, KeyspaceManager
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanRecord
+
+    names = [f"svc-{i:02d}" for i in range(n_services)]
+
+    def records(k):
+        rng = np.random.default_rng(40 + k)
+        return [SpanRecord(service=names[i % n_services], duration_us=float(rng.gamma(4.0, 250.0)),
+                           trace_id=int(rng.integers(1, 2**63)), is_error=bool(rng.random() < 0.02),
+                           attr=f"a{int(rng.integers(0, 8))}") for i in range(2048)]
+
+    twin = DetectorPipeline(AnomalyDetector(DetectorConfig(), device=device), batch_size=2048,
+                            harvest_interval_s=1e9)
+    for k in range(3):
+        twin.submit(records(k))
+        twin.pump(k * DT_S)
+        twin.drain()
+    torch.cuda.synchronize()
+    want = state_to_numpy(twin.detector.state)
+    twin.close()
+
+    class Writer:
+        def __init__(self):
+            self.calls = []
+
+        def record_eviction(self, record, meta, now=None):
+            self.calls.append((record, meta))
+
+    writer = Writer()
+
+    def sweep(pipe):
+        mgr = KeyspaceManager(pipe, idle_s=0.0, evict_batch=n_evict, history_writer=writer)
+        return mgr.evict_idle(now=time.monotonic() + 3600.0)
+
+    def warm(pipe):
+        # A sweep of a key no batch carries (its rows are zero, as in the
+        # twin), so the real sweep's kernels and buffers are not new.
+        mgr = KeyspaceManager(pipe, idle_s=0.0, evict_batch=1, history_writer=Writer(), protected=names)
+        check(mgr.evict_idle(now=time.monotonic() + 3600.0) == ["warm-up"], "the warm-up sweep")
+
+    sids = {}
+
+    def feed(pipe, k):
+        pipe.submit(records(k))
+        if k == 0:
+            pipe.tensorizer.service_id("warm-up")  # after the batch's names: the ids stay the twin's
+        sids.update(pipe.tensorizer._svc_snapshot)
+
+    pipe, _before, evicted, hold, pump_ms = behind_a_spun_step(device, sweep, feed, "sweep", warm=warm)
+    try:
+        check(len(evicted) == n_evict, f"the sweep evicted {evicted}")
+        rows = sorted(sids[n] for n in evicted)
+        after = state_to_numpy(pipe.detector.state)
+        expect = {}
+        for name in DetectorState._fields:
+            w = np.array(getattr(want, name), copy=True)
+            if name == "hll_bank":
+                w[:, :, rows, :] = 0
+            elif name in MERGE_HEAD_ROWS:
+                w[rows] = 0
+            expect[name] = w
+        same_bits(after, DetectorState(**expect), "state after a sweep behind a spinning step vs the twin's")
+        check(not np.all(want.hll_bank[0, 0, rows] == 0), "the spun step did not write the evicted rows")
+        (record, meta), = writer.calls
+        check(record["hll_bank"].tobytes() == want.hll_bank[0, 0].tobytes()
+              and all(record[h].tobytes() == getattr(want, h).tobytes() for h in MERGE_HEAD_ROWS)
+              and meta["seq"] == int(want.step_idx), "the fold record is not the state the step left")
+        print(f"sweep order: evict_idle of {n_evict} keys from another thread while a step writing their rows "
+              f"spun on a side stream: their rows zero, the rest == the twin after the step, the fold record "
+              f"== the step's rows; lock held {hold:.4f} ms; the pump took {pump_ms:.3f} ms")
+        return dict(hold_ms=hold, pump_ms=pump_ms, evicted=len(evicted))
     finally:
         pipe.close()
 
@@ -2774,7 +2946,7 @@ def phase_read_side(device, results):
             read_side_leg(device, None, 2048, 40, 4, 1, sink, logs_rx, logs_got),
             read_side_leg(device, "xla", 65536, 24, 3, 8, sink, logs_rx, logs_got),
         ]
-        order = snapshot_order(device)
+        order = dict(snapshot=snapshot_order(device), save=save_order(device), sweep=sweep_order(device))
         cost = tracer_cost(device, sink)
     finally:
         logs_rx.stop()
@@ -3171,6 +3343,288 @@ def phase_mitigation(device, results):
     return dict(mitigation=mit, shadow=sh, wall_s=time.perf_counter() - t0)
 
 
+# -- the hot-standby and fleet tier ------------------------------------------------
+
+
+def ms_pcts(holds_s) -> dict:
+    """p50 / p99 / max of a list of seconds, in ms."""
+    a = np.asarray(holds_s, dtype=np.float64) * 1e3
+    if not a.size:
+        return dict(n=0, p50=None, p99=None, max=None)
+    return dict(n=int(a.size), p50=float(np.percentile(a, 50)), p99=float(np.percentile(a, 99)),
+                max=float(a.max()))
+
+
+def delta_frame_bytes(arrays, meta) -> int:
+    """Bytes of one DELTA envelope carrying a full state (the HLL banks
+    ship whole, the CMS as a same-shape aggregate delta, the rest
+    replace-latest), length prefix included."""
+    from opentelemetry_demo_tpu_torch.runtime import replication
+
+    return len(replication.encode_frame(replication.DELTA, 1, seq=3, base_seq=2, arrays=arrays,
+                                        meta=dict(meta, hll_monotone=True)))
+
+
+def fleet_failover(device, results):
+    """``measure_failover`` on the card at its own config (S=8, p=8, CMS
+    512, B=256) and at the daemon's ``DetectorConfig()`` with B=2048 and
+    65536: the mirror converges exactly, the standby promotes at epoch 1
+    and carries the fed offsets. The primary's dispatch-lock hold per
+    snapshot (each ship and each HELLO check) is kept."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.replbench import measure_failover
+
+    legs = {}
+    mirrors = {}
+    for name, kw in (("default", {}), ("b2048", dict(config=DetectorConfig(), batch=2048)),
+                     ("b65536", dict(config=DetectorConfig(), batch=65536))):
+        holds: list = []
+        mirror: dict = {}
+        _kernels.reset_launches()
+        out = measure_failover(device=device, lock_holds=holds, mirror=mirror, **kw)
+        launches = _kernels.LAUNCHES["fused_update"]
+        check(out["converged_exact"], f"failover {name}: the mirror did not converge exactly: {out}")
+        check(out["promoted_epoch"] == 1, f"failover {name}: promoted at epoch {out['promoted_epoch']}")
+        check(out["replicated_offsets"] == {"0": out["spans_fed"]},
+              f"failover {name}: replicated offsets {out['replicated_offsets']} vs {out['spans_fed']} fed")
+        check(launches > 0, f"failover {name}: the sketch kernel never launched")
+        out.update(lock_hold_ms=ms_pcts(holds), delta_frame_bytes=delta_frame_bytes(mirror["arrays"], mirror["meta"]),
+                   launches=launches)
+        legs[name] = out
+        mirrors[name] = mirror
+        print(f"failover {name} (B={kw.get('batch', 256)}): ttd {out['failover_ttd_s']} s, replication lag p99 "
+              f"{out['replication_lag_p99_ms']} ms, {out['deltas_shipped']} deltas + {out['snapshots_shipped']} "
+              f"snapshots, {out['delta_frame_bytes']} bytes a delta frame, dispatch-lock hold per snapshot "
+              f"p50 {out['lock_hold_ms']['p50']:.4f} p99 {out['lock_hold_ms']['p99']:.4f} max "
+              f"{out['lock_hold_ms']['max']:.4f} ms over {out['lock_hold_ms']['n']}; {out['spans_fed']} spans fed, "
+              f"{launches} fused_update launches ({gpu_line()})")
+    results["fused_update"].setdefault("launches_fleet", {}).update(
+        {f"failover_{k}": v["launches"] for k, v in legs.items()})
+    return legs, mirrors
+
+
+def fleet_promotion(device, mirror, n=4, slow=5):
+    """The B=2048 leg's promoted mirror hydrated onto the card into a
+    fresh detector (``state_from_numpy`` and the replicated clock), and
+    the primary's own detector beside it (the uninterrupted twin): four
+    more batches with a ×10 latency fault on one service. The flags and
+    the integer state must be equal bit for bit."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState, state_from_numpy, state_to_numpy
+    from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanTensorizer
+
+    twin = mirror["detector"]
+    promoted = AnomalyDetector(twin.config, device=device)
+    promoted.state = state_from_numpy(DetectorState(**mirror["arrays"]), device)
+    promoted.clock._t_prev = mirror["meta"]["clock_t_prev"]
+    check(promoted.clock._t_prev == twin.clock._t_prev, "the replicated clock is not the primary's")
+    same_bits(state_to_numpy(promoted.state), state_to_numpy(twin.state), "promoted state before the fault")
+    rng = np.random.default_rng(51)
+    tz = SpanTensorizer(twin.config.num_services, 2048)
+    flags = {"twin": [], "promoted": []}
+    t = twin.clock._t_prev
+    for k in range(n):
+        t += 0.01
+        svc = rng.integers(0, 20, 2048).astype(np.int32)
+        lat = rng.gamma(4.0, 250.0, 2048).astype(np.float32)
+        lat[svc == slow] *= 10.0
+        batch = tz.pack_arrays(svc, lat, rng.integers(0, 2**63, 2048, dtype=np.uint64),
+                               (rng.random(2048) < 0.02).astype(np.float32), rng.zipf(1.5, 2048).astype(np.uint64))
+        for name, det in (("twin", twin), ("promoted", promoted)):
+            flags[name].append(det.observe(batch, t).flags.cpu().numpy().copy())
+    torch.cuda.synchronize()
+    a, b = state_to_numpy(promoted.state), state_to_numpy(twin.state)
+    for name in ("hll_bank", "cms_bank", "step_idx"):
+        check(getattr(a, name).tobytes() == getattr(b, name).tobytes(), f"promoted {name} != the twin's")
+    check(all(np.array_equal(x, y) for x, y in zip(flags["promoted"], flags["twin"])),
+          "the promoted detector's flags differ from the twin's")
+    floats_same = all(getattr(a, f).tobytes() == getattr(b, f).tobytes() for f in DetectorState._fields)
+    flagged = [np.flatnonzero(f).tolist() for f in flags["twin"]]
+    first = next((k + 1 for k, f in enumerate(flags["twin"]) if f[slow]), None)
+    print(f"promotion: the B=2048 mirror hydrated onto the card, {n} batches with service {slow} x10: flags and "
+          f"integer state == the uninterrupted twin's, every field bit-identical {floats_same}; flagged per "
+          f"batch {flagged} (service {slow} from batch {first}) ({gpu_line()})")
+    return dict(first_flag_batch=first, all_fields_identical=floats_same)
+
+
+def fleet_link_cost(device, reps=12, width=2048, n_warm=40, n_fault=4):
+    """The native B=2048 leg's bodies (``phase_native_e2e``'s path:
+    ``decode_otlp_many`` → ``submit_columnar`` → spine (2) → async
+    harvester), ``reps`` passes over them, with a replication primary
+    shipping to a live standby in this process, against a twin without
+    the link; in turns (off, 1.0 s, 0.05 s, 0.05 s, 1.0 s, off), each
+    setting's second run kept. At 1.0 s (the reference's
+    ``ANOMALY_REPLICATION_INTERVAL_S``) and 0.05 s (the drill's)."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+    from opentelemetry_demo_tpu_torch.runtime.replbench import pipeline_snapshot_fn
+    from opentelemetry_demo_tpu_torch.runtime.replication import EpochFence, ReplicationPrimary, ReplicationStandby
+
+    clean, faulty, _spans = e2e_bodies(width, n_warm, n_fault, 1)
+    n = n_warm + n_fault
+    scratch = native.alloc_scratch(*native.scratch_dims(max(len(b) for b in clean + faulty), 1))
+    threads = decode_threads()
+    cfg = DetectorConfig()
+
+    def run(interval):
+        pipe = DetectorPipeline(AnomalyDetector(cfg, device=device), batch_size=width, spine_ring=2,
+                                harvest_async=True)
+        holds: list = []
+        primary = standby = None
+        if interval is not None:
+            primary = ReplicationPrimary(pipeline_snapshot_fn(pipe, {0: 0}, holds), EpochFence(0),
+                                         interval_s=interval)
+            primary.start()
+            standby = ReplicationStandby(f"127.0.0.1:{primary.port}", EpochFence(0),
+                                         config_fingerprint=list(cfg._replace(sketch_impl=None)))
+            standby.start()
+            check(standby.wait_for_state(30.0), "the link's standby never bootstrapped")
+            holds.clear()
+        try:
+            t0 = time.perf_counter()
+            for r in range(reps):
+                for k in range(n):
+                    cols, _rows = native.decode_otlp_many(batch_bodies(clean, faulty, k, n_warm, 1),
+                                                          MONITORED_ATTR_KEYS, scratch=scratch, threads=threads)
+                    pipe.submit_columnar(cols, copy=True)
+                    pipe.pump((r * n + k) * DT_S)
+            pipe.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = dict(spans_per_s=reps * n * width / wall, wall_s=wall, lag_p99_ms=pipe.stats.lag_p99_ms())
+            if primary is not None:
+                st = primary.stats()
+                out.update(deltas=st["deltas_shipped"], snapshots=st["snapshots_shipped"],
+                           lock_hold_ms=ms_pcts(holds), standby_applied=standby.deltas_applied)
+        finally:
+            if standby is not None:
+                standby.stop()
+            if primary is not None:
+                primary.stop()
+            pipe.close()
+        return out
+
+    order = (None, 1.0, 0.05, 0.05, 1.0, None)
+    kept: dict = {}
+    for interval in order:
+        kept.setdefault(str(interval), []).append(run(interval))
+    rec = {k: dict(first=v[0], second=v[1]) for k, v in kept.items()}
+    off = rec["None"]["second"]["spans_per_s"]
+    check(rec["0.05"]["second"]["deltas"] > 0, "the link shipped no delta at 0.05 s")
+    print(f"link cost, native B={width} (spine + async), {reps} x {n} batches, in turns off/1.0/0.05/0.05/1.0/off: "
+          + "; ".join(f"{k}: {v['first']['spans_per_s']:.0f} then {v['second']['spans_per_s']:.0f} spans/s"
+                      + (f" ({v['second']['deltas']} deltas, lock hold p50 {v['second']['lock_hold_ms']['p50']} "
+                         f"p99 {v['second']['lock_hold_ms']['p99']} ms)" if k != "None" else "")
+                      for k, v in rec.items())
+          + f"; second runs against off: " + ", ".join(
+              f"{k} {rec[k]['second']['spans_per_s'] / off - 1:+.1%}" for k in ("1.0", "0.05"))
+          + f" ({gpu_line()})")
+    return rec
+
+
+def docs_close(got, want, path="docs") -> None:
+    """Integers, strings and flags exact; floats within RTOL / ATOL."""
+    if isinstance(want, dict):
+        check(sorted(got) == sorted(want), f"{path}: keys differ")
+        for k in want:
+            docs_close(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{path}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            docs_close(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        check(isinstance(got, float) and abs(got - want) <= ATOL + RTOL * abs(want), f"{path}: {got} vs {want}")
+    else:
+        check(got == want, f"{path}: {got} vs {want}")
+
+
+def fleet_reshard(device, results):
+    """``measure_reshard`` on the card at its own config and at
+    ``DetectorConfig()``, and the same drills on the CPU: ``fleet_ok``,
+    the partial answer labelled 200, and the victim's post-reshard
+    documents on the card equal the CPU's."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.replbench import measure_reshard
+
+    out = {}
+    for name, kw in (("default", {}), ("daemon_config", dict(config=DetectorConfig()))):
+        _kernels.reset_launches()
+        card = measure_reshard(device=device, **kw)
+        launches = _kernels.LAUNCHES["fused_update"]
+        cpu = measure_reshard(device="cpu", **kw)
+        for where, r in (("card", card), ("cpu", cpu)):
+            check(r["fleet_ok"], f"reshard {name} on the {where}: {json.dumps(r, default=str)[:1500]}")
+            check(r["partial_answer_ok"] and r["partial_shards_answered"] == 1,
+                  f"reshard {name} on the {where}: the partial answer was not a labelled 200")
+        check(card["victim_services"] == cpu["victim_services"], "the victim's keys differ")
+        docs_close(json.loads(json.dumps(card["victim_docs"])), json.loads(json.dumps(cpu["victim_docs"])),
+                   f"reshard {name} documents, card vs CPU")
+        check(launches > 0, f"reshard {name}: the sketch kernel never launched")
+        out[name] = dict(card=card, cpu=cpu, launches=launches)
+        print(f"reshard {name}: fleet_ok on the card and the CPU; victim {card['victim']} "
+              f"({', '.join(card['victim_services'])}) answered by the survivors, documents card == CPU; "
+              f"ttd {card['shard_reshard_ttd_s']} s (CPU {cpu['shard_reshard_ttd_s']} s); partial answer 200 with "
+              f"{card['partial_shards_answered']}/2 shards; tenant shed {card['tenant_shed_rows']}; "
+              f"{launches} fused_update launches ({gpu_line()})")
+    results["fused_update"].setdefault("launches_fleet", {}).update(
+        {f"reshard_{k}": v["launches"] for k, v in out.items()})
+    return out
+
+
+def fleet_soaks(device, results):
+    """The churn soak and the million-key soak at their defaults through
+    the native front door into pipelines on the card (512 and 4096
+    services; the second launches the sketch kernel above 48 KB of
+    shared memory)."""
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.frontdoorbench import measure_churn_soak, measure_million_key_soak
+
+    _kernels.reset_launches()
+    churn = measure_churn_soak(device=device)
+    churn_launches = _kernels.LAUNCHES["fused_update"]
+    check(churn["churn_ok"], f"churn soak: {json.dumps(churn, default=str)[:1500]}")
+    print(f"churn soak on the card: {churn['distinct_streamed']} keys through {churn['capacity']} slots, "
+          f"{churn['evictions']} evictions in {churn['sweeps']} sweeps (generation {churn['generation']}), live ids "
+          f"stable, evicted keys answer from history, RSS slope {churn['rss_slope_mb']} MB, {churn['elapsed_s']:.2f} s, "
+          f"{churn_launches} fused_update launches ({gpu_line()})")
+    _kernels.reset_launches()
+    soak = measure_million_key_soak(device=device)
+    soak_launches = _kernels.LAUNCHES["fused_update"]
+    check(soak["intern_exact"] and soak["readback_ok"] and soak["drift_refused"] and soak["soak_ok"],
+          f"million-key soak: {json.dumps(soak, default=str)[:1500]}")
+    check(soak_launches > 0, "the million-key soak never launched the sketch kernel")
+    print(f"million-key soak on the card: {soak['distinct_keys']} keys, {soak['distinct_interned']} interned of "
+          f"{soak['intern_capacity']}, {soak['overflow_keys']} refused into the overflow bucket, read-back exact, drift "
+          f"refused; {soak['keys_per_sec']:.0f} keys/s in {soak['elapsed_s']:.2f} s; RSS "
+          f"{soak['rss_per_million_keys_mb']} MB per million keys (gate {soak['soak_rss_ok']}); {soak['reports']} "
+          f"reports, {soak_launches} fused_update launches at S={soak['sketch_num_services']} ({gpu_line()})")
+    results["fused_update"].setdefault("launches_fleet", {}).update(churn_soak=churn_launches,
+                                                                     million_key_soak=soak_launches)
+    return dict(churn=churn, million=soak)
+
+
+def phase_fleet(device, results):
+    """The hot-standby and fleet tier on the card: failover at three
+    configurations, promotion of the mirror onto the card against the
+    uninterrupted twin, the link's cost to the native B=2048 leg, the
+    reshard drill card against CPU, and the cardinality soaks."""
+    t0 = time.perf_counter()
+    failover, mirrors = fleet_failover(device, results)
+    promotion = fleet_promotion(device, mirrors["b2048"])
+    del mirrors
+    link = fleet_link_cost(device)
+    reshard = fleet_reshard(device, results)
+    soaks = fleet_soaks(device, results)
+    out = dict(failover=failover, promotion=promotion, link_cost=link, reshard=reshard, soaks=soaks,
+               wall_s=time.perf_counter() - t0)
+    print(f"fleet phase: {out['wall_s']:.1f} s")
+    return out
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -3260,7 +3714,7 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
     lock = TimedLock(b._dispatch_lock)
     t0 = time.perf_counter()
     checkpoint.save(path, b.detector, offsets={"0": save_at + 1}, service_names=b.tensorizer.service_names,
-                    generation=b.tensorizer.generation, dispatch_lock=lock)
+                    generation=b.tensorizer.generation, dispatch_lock=lock, stream=b.step_stream)
     save_ms = (time.perf_counter() - t0) * 1e3
     lock_ms = lock.held_ms[0]
     b.drain()
@@ -3326,7 +3780,8 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
         torch.cuda._sleep(40_000_000)
         e1.record()
         lock = TimedLock(c._dispatch_lock)
-        checkpoint.save(path, c.detector, service_names=c.tensorizer.service_names, dispatch_lock=lock)
+        checkpoint.save(path, c.detector, service_names=c.tensorizer.service_names, dispatch_lock=lock,
+                        stream=c.step_stream)
         saved, _ = checkpoint.load(path, cfg, device="cpu")
         same_bits(state_to_numpy(saved.state), state_to_numpy(c.detector.state), f"busy save {r}")
         c.drain()
@@ -3340,7 +3795,8 @@ def phase_checkpoint(device, impl, cms_width, results, n_warm=40, n_fault=4, sav
     for _ in range(5):
         lock = TimedLock(c._dispatch_lock)
         t0 = time.perf_counter()
-        checkpoint.save(path, c.detector, service_names=c.tensorizer.service_names, dispatch_lock=lock)
+        checkpoint.save(path, c.detector, service_names=c.tensorizer.service_names, dispatch_lock=lock,
+                        stream=c.step_stream)
         saves.append((time.perf_counter() - t0) * 1e3)
         holds.append(lock.held_ms[0])
         t0 = time.perf_counter()
@@ -3565,7 +4021,7 @@ def _keyspace_bomb(device, results, clock, ticks, bomb_until, bomb_per_tick):
     CKPT_DIR.mkdir(parents=True)
     path = str(CKPT_DIR / "keyspace")
     checkpoint.save(path, card.detector, service_names=tz.service_names, generation=tz.generation,
-                    dispatch_lock=card._dispatch_lock)
+                    dispatch_lock=card._dispatch_lock, stream=card.step_stream)
     det, meta, _ = checkpoint.load_resilient(path, cfg, device=device)
     back = DetectorPipeline(det, batch_size=2048)
     back.tensorizer.adopt_names(meta["service_names"])
@@ -3658,7 +4114,9 @@ def phase_times(cfg, device, results):
     """Each kernel, its plain version and the library call on the same
     inputs, in turns (plain, kernel, kernel, plain), at the shapes of its
     paths; and each kernel's device time split by device operation. K1 is
-    timed at B = 2048 (the main path), 8192 and 65536; K3 at a (2 × 2)
+    timed at B = 2048 (the main path), 8192 and 65536, and at B = 4096
+    with 2048 and 4096 services (the million-key soak's geometry, past
+    48 KB of shared memory); K3 at a (2 × 2)
     mesh rank's shape and at one rank's full width, B = 2048 and 65536
     (the one-rank mesh leg's widths). Both also at B = 1, and K1 at 2048
     without its head epilogue, to show the launch's fixed cost."""
@@ -3695,6 +4153,19 @@ def phase_times(cfg, device, results):
                             lambda: fused.fused_update(*args1, **kw), 10),
                 bound_ms=fused_bound_bytes(one, cfg) / HBM_BYTES_PER_S * 1e3,
             )
+    for s in OPT_IN_SERVICES:
+        c = soak_config(cfg, s)
+        lanes = batch_lanes(rng, c, 4096, device, n_active=s)
+        hll_bank, cms_bank, heads = random_state(rng, c, device)
+        kw = dict(num_services=s, hll_p=c.hll_p, heads=fused.HeadState(**heads),
+                  dt=torch.tensor(DT_S, device=device),
+                  step_pos=torch.tensor(7, dtype=torch.int32, device=device), statics=head_kw(c))
+        args = (hll_bank[:, 0], cms_bank[:, 0], *k1_args(lanes))
+        k1["shapes"][f"B=4096 S={s}"] = dict(
+            time_kernel(lambda: fused.fused_update_plain(*args, **kw), lambda: fused.fused_update(*args, **kw), 4),
+            bound_ms=fused_bound_bytes(lanes, c) / HBM_BYTES_PER_S * 1e3,
+            plan=fused.launch_plan(4096, s)._asdict(),
+        )
     k1.update(k1["shapes"]["B=2048"], library_ms=None)
 
     lanes = batch_lanes(rng, cfg, 65536, device)
@@ -3848,6 +4319,7 @@ def main() -> int:
     read_side = phase_read_side(device, results)
     time_travel = dict(history=phase_history(device, results), quality=phase_quality(device, results),
                        mitigation=phase_mitigation(device, results))
+    fleet = phase_fleet(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -3875,12 +4347,13 @@ def main() -> int:
             library_ms=r["library_ms"], launches_doors=r.get("launches_doors"),
             launches_orders=r.get("launches_orders"), launches_read=r.get("launches_read"),
             launches_history=r.get("launches_history"), launches_quality=r.get("launches_quality"),
+            launches_fleet=r.get("launches_fleet"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
          "doors": doors, "orders": orders, "read_side": read_side, "time_travel": time_travel,
-         "state": state, "mesh": mesh,
+         "fleet": fleet, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -78,6 +78,8 @@
 
 #pragma once
 
+#include <mutex>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -458,9 +460,26 @@ __global__ void __launch_bounds__(kMaxThreads) sketch_kernel(SketchArgs a, HeadA
 
 // The launch, on `st`: cooperative, since the blocks wait for each other
 // at the grid barrier and must all be resident (the launch is refused
-// otherwise). Returns the launch's error.
+// otherwise). A plan above the default 48 KB of dynamic shared memory
+// (many services: ops/fused.py launch_plan) opts the kernel in to it
+// first, once for each larger size. Returns the first error.
 inline cudaError_t launch_sketch(SketchArgs a, HeadArgs h, int grid, int threads, int smem,
                                  cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    // The attribute belongs to the current device: one record each.
+    static std::mutex mu;
+    static int opted[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(mu);
+    if (smem > opted[dev]) {
+      err = cudaFuncSetAttribute(sketch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      opted[dev] = smem;
+    }
+  }
   void* args[] = {&a, &h};
   return cudaLaunchCooperativeKernel((const void*)sketch_kernel, dim3(grid), dim3(threads),
                                      args, (size_t)smem, st);

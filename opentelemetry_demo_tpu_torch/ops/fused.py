@@ -344,7 +344,8 @@ _SKETCH_MAX_DEPTH = 8
 # blocks) were slower on the H100 than 16 blocks of 128 (PERF.md): the
 # kernel waits on memory, and more blocks add partials to sum.
 _SKETCH_MIN_LANES = 128
-# Dynamic shared memory a block gets without opting in to more, in floats.
+# Dynamic shared memory a block gets without opting in to more, in floats
+# (the plan goes past it only where one warp needs more).
 _SKETCH_SMEM_FLOATS = 48 * 1024 // 4
 
 
@@ -362,19 +363,25 @@ def launch_plan(b: int, num_services: int, n_sms: int = _kernels.N_SMS) -> Sketc
     staging slice, block 0's chunk sums (a float a thread) and its copy of
     the services' observation counts and CUSUMs ``[4, S]``. The plan keeps
     it under the default 48 KB, with fewer warps for many services (each
-    then walks more slices); a service count whose single warp does not
-    fit raises.
+    then walks more slices). Where one warp does not fit there
+    (S > 1524), it budgets against the card's opt-in limit
+    (``_kernels.SMEM_LIMIT``; the launch opts in), so every plan that
+    fits in 48 KB is the same as without the opt-in. A service count
+    whose single warp does not fit even then (S > 7252) raises.
     """
     s = num_services
     per_sm = -(-b // n_sms)
     lanes = max(_SKETCH_MIN_LANES, -(-per_sm // 32) * 32)
     max_warps = (_SKETCH_SMEM_FLOATS - 4 * s) // (4 * s + 64 + 32)
     if max_warps < 1:
-        raise ValueError(
-            f"the sketch kernel keeps stats for {s} services in shared memory "
-            f"({(8 * s + 96) * 4} B for one warp); a block has {_SKETCH_SMEM_FLOATS * 4} B "
-            "without opting in"
-        )
+        limit = _kernels.SMEM_LIMIT // 4
+        max_warps = (limit - 4 * s) // (4 * s + 64 + 32)
+        if max_warps < 1:
+            raise ValueError(
+                f"the sketch kernel keeps stats for {s} services in shared memory "
+                f"({(8 * s + 96) * 4} B for one warp); a block may opt in to at most "
+                f"{_kernels.SMEM_LIMIT} B, which holds one warp up to 7252 services"
+            )
     threads = min(_SKETCH_MAX_THREADS, lanes, 32 * max_warps)
     smem = ((threads // 32) * (4 * s + 64) + threads + 4 * s) * 4
     return SketchPlan(max(1, -(-b // lanes)), threads, lanes, smem)

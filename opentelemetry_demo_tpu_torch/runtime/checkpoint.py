@@ -108,18 +108,23 @@ def save(
     generation: int = 0,
     *,
     dispatch_lock,
+    stream=None,
 ) -> None:
     """Snapshot a live detector to disk.
 
     ``dispatch_lock`` is the owning pipeline's ``_dispatch_lock``. It is
     keyword-only with no default: a caller with a quiesced detector
-    passes ``dispatch_lock=None`` deliberately. The lock is held only
-    while the state's copy to the host is enqueued (and the clock read);
-    the wait for it, the frame encode and the fsync'd write run outside.
+    passes ``dispatch_lock=None`` deliberately. ``stream`` is the stream
+    the steps run on (``DetectorPipeline.step_stream``); the copy is
+    enqueued there, so it holds every step dispatched before it and no
+    later one, whatever the calling thread's current stream is (None:
+    the current stream). The lock is held only while the state's copy to
+    the host is enqueued (and the clock read); the wait for it, the frame
+    encode and the fsync'd write run outside.
     """
     copy = HostCopy(detector.state)
     with dispatch_lock if dispatch_lock is not None else _NULL_LOCK:
-        copy.start(detector.state)
+        copy.start(detector.state, stream=stream)
         clock_t_prev = detector.clock._t_prev
     save_state(
         path, DetectorState(*copy.numpy()), detector.config,

@@ -16,11 +16,13 @@ process. This module keeps the keyspace on a budget:
   steps run on. With a ``history_writer`` it first hands over a fold
   record of the rows (the reference's record: the current shortest
   window's HLL bank, the head arrays, and the add-identity for the CMS
-  and span total), copying only those arrays to the host.
+  and span total), copying only those arrays to the host, in the same
+  stream order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -29,6 +31,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from .hostcopy import HostCopy
 from .pipeline import KEYSPACE_LEVEL_EVICT
 
 log = logging.getLogger(__name__)
@@ -60,7 +63,9 @@ class KeyspaceManager:
     ``tick()`` is the whole behaviour (the background thread calls it on
     a cadence; a replay calls it with a virtual clock): sample pressure
     → clock the ladder → evict idle keys while the ladder is engaged.
-    ``protected`` names are never evicted.
+    ``protected`` names are never evicted. With a ``flight`` recorder
+    each sweep that frees keys records a ``keyspace`` event
+    (``op="evict"``).
     """
 
     def __init__(
@@ -73,6 +78,7 @@ class KeyspaceManager:
         interval_s: float = 1.0,
         protected: Iterable[str] = (),
         history_writer=None,
+        flight=None,
         now_fn: Callable[[], float] = time.monotonic,
         wall_fn: Callable[[], float] = time.time,
         rss_fn: Callable[[], int] = process_rss_bytes,
@@ -84,6 +90,7 @@ class KeyspaceManager:
         self.interval_s = float(interval_s)
         self.protected = set(protected)
         self.history_writer = history_writer
+        self.flight = flight
         self.now_fn = now_fn
         self.wall_fn = wall_fn
         self.rss_fn = rss_fn
@@ -183,28 +190,33 @@ class KeyspaceManager:
         sids = torch.tensor([sid for _, _, sid in candidates], dtype=torch.int64)
         if cuda:
             sids = sids.pin_memory()
-        fold = None
+        # The fold's pinned host buffer is allocated before the lock is
+        # taken (pinning pages takes host time), as state_snapshot does.
+        rows = [state.hll_bank[0, 0], state.step_idx, *(getattr(state, h) for h in MERGE_HEAD_ROWS)]
+        fold = HostCopy(rows) if self.history_writer is not None else None
         with pipeline._dispatch_lock:
-            if self.history_writer is not None:
-                # The rows still hold the keys' state: snapshot what the
-                # record needs on the device, in stream order.
-                fold = {
-                    "hll_bank": state.hll_bank[0, 0].clone(),
-                    "step_idx": state.step_idx.clone(),
-                    **{h: getattr(state, h).clone() for h in MERGE_HEAD_ROWS},
-                }
-                rec_meta = {
-                    "service_names": tz.service_names,  # pre-retirement
-                    "config": list(pipeline.detector.config._replace(sketch_impl=None)),
-                    "generation": tz.generation,  # pre-bump: the old ids
-                    "evicted": list(names),
-                    "query": {},
-                }
-            idx = sids.to(device, non_blocking=True)
-            # A recycled id starts from the monoid identities.
-            state.hll_bank.index_fill_(2, idx, 0)
-            for head in MERGE_HEAD_ROWS:
-                getattr(state, head).index_fill_(0, idx, 0)
+            # On the stream the steps run on (named: the calling thread's
+            # current stream may be another), so the fold reads and the
+            # zeroing land after every step dispatched so far and before
+            # any later one.
+            stream = pipeline.step_stream
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                if fold is not None:
+                    # The rows still hold the keys' state: copy what the
+                    # record needs to the host, in stream order.
+                    fold.start(rows, stream=stream)
+                    rec_meta = {
+                        "service_names": tz.service_names,  # pre-retirement
+                        "config": list(pipeline.detector.config._replace(sketch_impl=None)),
+                        "generation": tz.generation,  # pre-bump: the old ids
+                        "evicted": list(names),
+                        "query": {},
+                    }
+                idx = sids.to(device, non_blocking=True)
+                # A recycled id starts from the monoid identities.
+                state.hll_bank.index_fill_(2, idx, 0)
+                for head in MERGE_HEAD_ROWS:
+                    getattr(state, head).index_fill_(0, idx, 0)
             # Retire inside the lock: the next flush may hand a freed id
             # to a new key, and its rows must already be zero.
             freed = tz.retire_services(names)
@@ -212,15 +224,22 @@ class KeyspaceManager:
         self.evictions += len(freed)
         self.sweeps += 1
         if fold is not None and freed:
-            host = {k: v.cpu().numpy() for k, v in fold.items()}
+            hll, step_idx, *heads = fold.numpy()
             record = {
-                "hll_bank": host["hll_bank"],
+                "hll_bank": hll,
                 "cms_bank": np.zeros(tuple(state.cms_bank.shape[2:]), np.int32),
                 "span_total": np.zeros((), np.float32),
-                **{h: host[h] for h in MERGE_HEAD_ROWS},
+                **dict(zip(MERGE_HEAD_ROWS, heads)),
             }
-            rec_meta = {"seq": int(host["step_idx"]), **rec_meta}
+            rec_meta = {"seq": int(step_idx), **rec_meta}
             self.history_writer.record_eviction(record, rec_meta, now=self.wall_fn())
+        if self.flight is not None and freed:
+            self.flight.record(
+                "keyspace", op="evict", keys=len(freed),
+                generation=tz.generation, fill=self.fill_fraction(),
+                rss_mb=round(self.last_rss / (1024 * 1024), 1),
+                names=names[:8],
+            )
         return evicted
 
     def stats(self) -> dict:

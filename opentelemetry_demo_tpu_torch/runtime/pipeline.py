@@ -1026,7 +1026,9 @@ class DetectorPipeline:
         before the first dispatch)."""
         return self._step_stream
 
-    def state_snapshot(self) -> tuple[dict[str, np.ndarray], float | None]:
+    def state_snapshot(
+        self, hold_observe: Callable[[float], None] | None = None
+    ) -> tuple[dict[str, np.ndarray], float | None]:
         """A consistent host copy of the whole detector state, and the
         window clock, as of the steps dispatched so far.
 
@@ -1037,12 +1039,16 @@ class DetectorPipeline:
         for it runs after the lock is released. Returns numpy arrays by
         ``DetectorState`` field name with the state's dtypes (int32
         banks, float32 heads, a 0-d int32 ``step_idx``). Raises if the
-        copy fails."""
+        copy fails. ``hold_observe`` gets the seconds the lock was held."""
         det = self.detector
         copy = HostCopy(det.state)
         with self._dispatch_lock:
+            t0 = time.perf_counter()
             copy.start(det.state, stream=self._step_stream)
             clock_t_prev = det.clock._t_prev
+            held = time.perf_counter() - t0
+        if hold_observe is not None:
+            hold_observe(held)
         return dict(zip(DetectorState._fields, copy.numpy())), clock_t_prev
 
     def _provenance_snapshot(self) -> dict | None:

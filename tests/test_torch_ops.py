@@ -540,16 +540,19 @@ def test_sketch_launch_plan_fits_the_h100(s, d):
 def test_sketch_launch_plan_many_services_stays_under_48kb(s, n_sms):
     """Many services fill shared memory with per-warp stats: the plan
     takes fewer warps (each walking more slices) rather than opting in to
-    more than 48 KB, on an H100 SXM (132 SMs) or PCIe (114 SMs), and
-    raises only past the count whose single warp does not fit."""
+    more than 48 KB, on an H100 SXM (132 SMs) or PCIe (114 SMs), up to
+    the count whose single warp does not fit in 48 KB (1524); past it the
+    plan opts in (above 48 KB), and it raises past the count whose single
+    warp does not fit in the opt-in limit (7252)."""
     for b in PLAN_WIDTHS:
         plan = fused.launch_plan(b, s, n_sms)
         _check_plan(plan, b, s, n_sms)
         # As many warps as a thread per lane, 512 and 48 KB allow.
         one_more = (plan.threads // 32 + 1) * (4 * s + 96) + 4 * s
         assert plan.threads == min(512, plan.lanes_per_block) or one_more > 48 * 1024 // 4
+    assert 48 * 1024 < fused.launch_plan(2048, 1525, n_sms).smem_bytes <= _kernels.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        fused.launch_plan(2048, 1525, n_sms)
+        fused.launch_plan(2048, 7253, n_sms)
 
 
 def test_sketch_kernels_refuse_more_cms_rows_than_a_lane_keeps():
