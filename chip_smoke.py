@@ -128,6 +128,27 @@ the lag p99, the bytes of a delta frame, the dispatch-lock hold per
 ship, the link's cost in spans/s, the soaks' keys/s and RSS per million
 keys.
 
+The detector daemon follows (``phase_daemon``): ``DetectorDaemon`` on the
+card at its default knobs with ephemeral ports, the native front door,
+a checkpoint, a history directory and a flagd file each. The native
+B = 2048 corpus by one client through its front door, a ``step(t)``
+after each batch: state bit for bit the in-process ``submit_columnar``
+twin's and within tolerance a CPU twin daemon's, ``service-07`` flagged
+on its first faulty batch and never before, ``/metrics``, ``/query`` and
+``/healthz`` answering, no component restart, no warm-up error. Then a
+second daemon boots from the first's shutdown checkpoint with its state,
+names, offsets and epoch, and takes 4 faulty batches as the
+uninterrupted twin does; the orders corpus and its ×4 flood go through
+the daemon's own Kafka pump (flagged on the flood's first batch, every
+order counted, offsets committed); a primary and a standby daemon, the
+standby promoted by its watchdog with the primary's final state on the
+card bit for bit; the B = 65536 corpus through a ``sketch_impl="xla"``
+daemon; ``python -m opentelemetry_demo_tpu_torch`` as a process on the
+card (announce, a flagged fault, SIGTERM exit 0 with its checkpoint);
+and ``replbench``'s live drills with daemon processes on the card. It
+prints boot times, spans/s and orders/s through the daemon, the
+failover TTD, the replication lag and the lock hold per ship.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -3625,6 +3646,594 @@ def phase_fleet(device, results):
     return out
 
 
+# -- the daemon ---------------------------------------------------------------------
+
+DAEMON_DIR = ROOT / "build" / "chip_smoke_daemon"
+DAEMON_ENV = ("KAFKA_ADDR", "FLAGD_FILE", "OFREP_URL")
+
+
+@contextlib.contextmanager
+def daemon_env(name: str, **knobs):
+    """The environment one daemon boots from: every ``ANOMALY_*`` knob
+    unset, then ephemeral ports, the front door on (two decode workers),
+    B = 2048, a checkpoint, a history directory and a flagd file of its
+    own under ``DAEMON_DIR/name``, then ``knobs``. Restored on exit."""
+    from opentelemetry_demo_tpu_torch.utils.flags import atomic_write_doc
+
+    where = DAEMON_DIR / name
+    where.mkdir(parents=True, exist_ok=True)
+    flags = where / "flags.json"
+    atomic_write_doc(str(flags), flag_doc())
+    saved = dict(os.environ)
+    for k in list(os.environ):
+        if k.startswith("ANOMALY_") or k in DAEMON_ENV:
+            del os.environ[k]
+    env = dict(
+        ANOMALY_OTLP_PORT=0, ANOMALY_OTLP_GRPC_PORT=-1, ANOMALY_METRICS_PORT=0, ANOMALY_QUERY_PORT=0,
+        ANOMALY_FRONTDOOR_ENABLE=1, ANOMALY_FRONTDOOR_PORT=0, ANOMALY_INGEST_WORKERS=2, ANOMALY_BATCH=2048,
+        ANOMALY_CHECKPOINT=where / "ckpt", ANOMALY_HISTORY_DIR=where / "history", FLAGD_FILE=flags,
+    )
+    env.update(knobs)
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield where
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def boot_daemon(device, config=None):
+    """``DetectorDaemon`` booted and started, its width-ladder warm-up
+    joined (boot time = constructor to ``start()`` returned, warm-up
+    included); its reports tapped as ``(t, report, flagged names)``."""
+    from opentelemetry_demo_tpu_torch.runtime.daemon import DetectorDaemon
+
+    t0 = time.perf_counter()
+    d = DetectorDaemon(config, device=device)
+    check(d.wait_warm(300.0), "the width-ladder warm-up did not finish")
+    d.start()
+    boot_s = time.perf_counter() - t0
+    check(d.warmup_error is None, f"the width-ladder warm-up failed: {d.warmup_error!r}")
+    reports: list = []
+    inner = d.pipeline.on_report
+
+    def tap(t, rep, names):
+        reports.append((t, rep, list(names)))
+        inner(t, rep, names)
+
+    d.pipeline.on_report = tap
+    d.reports = reports
+    return d, boot_s
+
+
+def exposition(d) -> str:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", d.exporter.port, timeout=30.0)
+    try:
+        conn.request("GET", "/metrics")
+        return conn.getresponse().read().decode()
+    finally:
+        conn.close()
+
+
+def metric_value(text: str, series: str) -> float | None:
+    """The value of one exposition line (name plus labels, exactly)."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def no_restarts(d, what: str) -> int:
+    """Supervision stayed idle: no component restarted (``/metrics`` and
+    the supervisor agree). Returns the count (0)."""
+    from opentelemetry_demo_tpu_torch.telemetry import metrics as tele_metrics
+
+    text = exposition(d)
+    lines = [ln for ln in text.splitlines() if ln.startswith(tele_metrics.ANOMALY_COMPONENT_RESTARTS + "{")]
+    total = sum(float(ln.rsplit(" ", 1)[1]) for ln in lines)
+    total += sum(d._supervisor.restarts(c) for c in d._supervisor.states())
+    check(total == 0, f"{what}: components restarted: {lines} {d._supervisor.states()}")
+    return int(total)
+
+
+def feed_daemon(d, clean, faulty, ks, n_warm, per, what):
+    """POST each batch's bodies through ``d``'s native front door (one
+    client), then ``d.step(t)`` on the e2e legs' virtual clock; drained
+    at the end. Returns the wall seconds."""
+    client = DoorClient(d.frontdoor.port)
+    t0 = time.perf_counter()
+    try:
+        for k in ks:
+            for body in batch_bodies(clean, faulty, k, n_warm, per):
+                status, _ = client.post("/v1/traces", body)
+                check(status == 200, f"{what}: batch {k} answered {status}")
+            d.step(k * DT_S)
+        d.pipeline.drain()
+        torch.cuda.synchronize()
+    finally:
+        client.close()
+    return time.perf_counter() - t0
+
+
+def twin_pipeline(device, cfg, width):
+    """The in-process ``submit_columnar`` twin (spine off, synchronous
+    harvest) and its reports."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    reports: list = []
+    pipe = DetectorPipeline(AnomalyDetector(cfg, device=device), batch_size=width,
+                            on_report=lambda t, rep, names: reports.append((t, rep, list(names))))
+    pipe.reports = reports
+    return pipe
+
+
+def feed_twin(pipe, clean, faulty, ks, n_warm, per):
+    from opentelemetry_demo_tpu_torch.runtime import native
+    from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
+
+    for k in ks:
+        cols, _rows = native.decode_otlp_many(batch_bodies(clean, faulty, k, n_warm, per), MONITORED_ATTR_KEYS)
+        pipe.submit_columnar(cols)
+        pipe.pump(k * DT_S)
+    pipe.drain()
+
+
+def flags_by_t(reports) -> dict:
+    return {t: names for t, _rep, names in reports}
+
+
+def same_flags(got, want, ks, what) -> None:
+    """The flags of every batch in ``ks`` that both runs read agree (at
+    least half of them read by both)."""
+    g, w = flags_by_t(got), flags_by_t(want)
+    common = [k * DT_S for k in ks if k * DT_S in g and k * DT_S in w]
+    check(len(common) >= len(ks) // 2, f"{what}: only {len(common)} of {len(ks)} batches read by both runs")
+    for t in common:
+        check(g[t] == w[t], f"{what}: flags at t={t}: {g[t]} vs {w[t]}")
+
+
+def onset_flags(reports, n_warm, what) -> None:
+    """``service-07`` flagged on the first faulty batch and never before."""
+    target = f"service-{SLOW:02d}"
+    onset = n_warm * DT_S
+    before = [(t, names) for t, _r, names in reports if t < onset and names]
+    check(not before, f"{what}: flags before onset: {before[:3]}")
+    at = [names for t, _r, names in reports if t == onset]
+    check(at == [[target]], f"{what}: the first faulty batch flags {at}, not [{target}]")
+
+
+def states_close(got, want, what) -> None:
+    """Integer fields exact, floats within RTOL / ATOL."""
+    for name, x, y in zip(got._fields, got, want):
+        check(x.dtype == y.dtype and x.shape == y.shape, f"{what}: {name} dtype/shape")
+        if x.dtype.kind in "iu":
+            check(x.tobytes() == y.tobytes(), f"{what}: {name} differs")
+        else:
+            check(np.allclose(x, y, rtol=RTOL, atol=ATOL), f"{what}: {name} beyond tolerance, max err "
+                  f"{float(np.abs(x.astype(np.float64) - y).max())}")
+
+
+def daemon_doors(device, results, n_warm=40, n_fault=4):
+    """``DetectorDaemon(device=cuda)`` at its defaults with the front door
+    on: the native B = 2048 corpus by one client through the front door,
+    ``step(t)`` after each batch's body was answered; against a CPU twin
+    daemon fed the same way and the in-process ``submit_columnar``
+    pipeline twin on the card. Returns the record and (daemon, twin)
+    for the resume leg."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.telemetry import metrics as tele_metrics
+
+    width, per = 2048, 1
+    clean, faulty, _spans = e2e_bodies(width, n_warm, n_fault, per)
+    n = n_warm + n_fault
+    ks = range(n)
+    twin = twin_pipeline(device, DetectorConfig(), width)
+    feed_twin(twin, clean, faulty, ks, n_warm, per)
+    onset_flags(twin.reports, n_warm, "doors twin")
+    with daemon_env("doors"):
+        d, boot_s = boot_daemon(device)
+    check(d.device.type == "cuda" and d.detector.state.hll_bank.is_cuda, "the daemon is not on the card")
+    _kernels.reset_launches()
+    wall = feed_daemon(d, clean, faulty, ks, n_warm, per, "daemon doors")
+    launches = _kernels.LAUNCHES["fused_update"]
+    check(launches == n == d.pipeline.stats.batches, f"daemon doors: {launches} launches, "
+          f"{d.pipeline.stats.batches} batches, {n} fed")
+    check(d.pipeline.stats.spans == n * width, f"daemon doors: {d.pipeline.stats.spans} spans dispatched")
+    same_bits(state_to_numpy(d.detector.state), state_to_numpy(twin.detector.state), "daemon doors vs the twin")
+    onset_flags(d.reports, n_warm, "daemon doors")
+    same_flags(d.reports, twin.reports, ks, "daemon doors vs the twin")
+    text = exposition(d)
+    spans_metric = metric_value(text, tele_metrics.ANOMALY_SPANS_TOTAL)
+    check(spans_metric == n * width, f"daemon doors: {tele_metrics.ANOMALY_SPANS_TOTAL} {spans_metric}, "
+          f"{n * width} posted")
+    target = f"service-{SLOW:02d}"
+    check(metric_value(text, f'{tele_metrics.ANOMALY_FLAG_TOTAL}{{service="{target}"}}') is not None,
+          f"daemon doors: no flag line for {target} on /metrics")
+    status, doc = http_json(d.query_service.port, f"/query/zscore?service={target}")
+    check(status == 200 and doc.get("data"), f"daemon doors: /query/zscore answered {status}")
+    status, health = http_json(d.exporter.port, "/healthz")
+    check(status == 200 and health.get("status") == "ok" and health.get("role") == "primary",
+          f"daemon doors: /healthz {status} {health.get('status')} {health.get('role')}")
+    restarts = no_restarts(d, "daemon doors")
+
+    # The CPU twin daemon, fed the same way.
+    with daemon_env("doors_cpu"):
+        c, cpu_boot_s = boot_daemon("cpu")
+    try:
+        feed_daemon(c, clean, faulty, ks, n_warm, per, "CPU twin daemon")
+        states_close(state_to_numpy(d.detector.state), state_to_numpy(c.detector.state), "daemon doors vs CPU")
+        onset_flags(c.reports, n_warm, "CPU twin daemon")
+        same_flags(d.reports, c.reports, ks, "daemon doors vs CPU")
+    finally:
+        c.shutdown()
+    rec = dict(boot_s=boot_s, cpu_boot_s=cpu_boot_s, wall_s=wall, spans_per_s=n * width / wall,
+               launches=launches, lag_p99_ms=d.pipeline.stats.lag_p99_ms(), restarts=restarts,
+               reports_read=len(d.reports), reports_skipped=d.pipeline.stats.reports_skipped,
+               ship_lock_hold_ms=None)
+    print(f"daemon doors: DetectorDaemon on the card, boot {boot_s:.3f} s (warm-up included; CPU twin "
+          f"{cpu_boot_s:.3f} s); {n} batches of {width} spans by one client through the front door: "
+          f"{rec['spans_per_s']:.0f} spans/s answered and stepped, lag p99 {rec['lag_p99_ms']:.3f} ms; state == "
+          f"the in-process twin bit for bit and the CPU twin daemon within tolerance, {target} flagged on the "
+          f"first faulty batch and never before in all three, /metrics spans {spans_metric:.0f}, /query and "
+          f"/healthz answer, restarts {restarts}; fused_update launches {launches} ({gpu_line()})")
+    return rec, d, twin
+
+
+def daemon_resume(device, d, twin, n_warm=40, n_fault=4, more=4):
+    """``shutdown()`` writes the checkpoint on the steps' stream; a second
+    daemon boots from it on the card with the first's final state,
+    names, offsets and epoch; then ``more`` faulty batches go into both
+    it and the uninterrupted twin: flags and state equal."""
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+
+    width, per = 2048, 1
+    clean, faulty, _spans = e2e_bodies(width, n_warm, n_fault, per)
+    n = n_warm + n_fault
+    final = state_to_numpy(d.detector.state)
+    names = list(d.pipeline.tensorizer.service_names)
+    offsets, epoch = dict(d._offsets), d._fence.epoch
+    t0 = time.perf_counter()
+    d.shutdown()
+    save_s = time.perf_counter() - t0
+    with daemon_env("doors"):
+        r, boot_s = boot_daemon(device)
+    try:
+        same_bits(state_to_numpy(r.detector.state), final, "resumed daemon vs the first's final state")
+        check(list(r.pipeline.tensorizer.service_names) == names, "resumed daemon: service names differ")
+        check(dict(r._offsets) == offsets and r._fence.epoch == epoch, "resumed daemon: offsets or epoch differ")
+        check(r.detector.clock._t_prev == twin.detector.clock._t_prev, "resumed daemon: window clock differs")
+        ks = range(n, n + more)
+        _kernels.reset_launches()
+        feed_daemon(r, clean, faulty, ks, n_warm, per, "resumed daemon")
+        launches = _kernels.LAUNCHES["fused_update"]
+        feed_twin(twin, clean, faulty, ks, n_warm, per)
+        same_bits(state_to_numpy(r.detector.state), state_to_numpy(twin.detector.state),
+                  "resumed daemon vs the uninterrupted twin")
+        same_flags(r.reports, twin.reports, ks, "resumed daemon vs the uninterrupted twin")
+        check(launches == more, f"resumed daemon: {launches} launches for {more} batches")
+        restarts = no_restarts(r, "resumed daemon")
+    finally:
+        r.shutdown()
+        twin.close()
+    print(f"daemon resume: shutdown save {save_s:.3f} s, boot from the checkpoint {boot_s:.3f} s; state, "
+          f"{len(names)} names, offsets {offsets} and epoch {epoch} == the first daemon's; {more} faulty "
+          f"batches: state and flags == the uninterrupted twin; fused_update launches {launches}, restarts "
+          f"{restarts} ({gpu_line()})")
+    return dict(save_s=save_s, boot_s=boot_s, launches=launches, restarts=restarts)
+
+
+def daemon_orders(device, clean_s=40.0, flood_s=4.0):
+    """``KAFKA_ADDR`` at the in-process broker (three partitions) with
+    the orders leg's corpus and its ×4 flood, pumped by the daemon's
+    ``_pump_orders`` every virtual 0.1 s: the flood flags
+    ``checkout-orders`` on its first batch and never before, every order
+    is counted, and the committed offsets are the produced ones."""
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+
+    pumps = live_pumps(81, clean_s, flood_s)
+    onset = int(round(clean_s / ORDER_DT))
+    topic = OrderTopic()
+    try:
+        with daemon_env("orders", KAFKA_ADDR=topic.addr):
+            d, boot_s = boot_daemon(device)
+        try:
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            for k, payloads in enumerate(pumps):
+                topic.publish(payloads)
+                d.step(k * ORDER_DT)
+                if k == onset:
+                    d.pipeline.drain()  # the onset's report is read, never skipped
+            d.pipeline.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernels.LAUNCHES["fused_update"]
+            produced = {p: len(v) for p, v in enumerate(topic.by_partition)}
+            check(d.pipeline.stats.spans == topic.n, f"daemon orders: {d.pipeline.stats.spans} of {topic.n} counted")
+            check(dict(d._offsets) == produced, f"daemon orders: offsets {d._offsets} vs produced {produced}")
+            check(launches == d.pipeline.stats.batches, f"daemon orders: {launches} launches for "
+                  f"{d.pipeline.stats.batches} batches")
+            t_onset = onset * ORDER_DT
+            before = [(t, names) for t, _r, names in d.reports if t < t_onset and names]
+            check(not before, f"daemon orders: flags before the flood: {before[:3]}")
+            at = [names for t, _r, names in d.reports if t == t_onset]
+            check(at == [[ORDERS]], f"daemon orders: the flood's first batch flags {at}, not [{ORDERS}]")
+            restarts = no_restarts(d, "daemon orders")
+            batches, lag = d.pipeline.stats.batches, d.pipeline.stats.lag_p99_ms()
+        finally:
+            d.shutdown()  # the shutdown checkpoint commits the offsets, epoch-tagged
+        committed = {p: topic.broker.committed("anomaly-detector", "orders", p) for p in range(3)}
+        check(committed == produced, f"daemon orders: committed {committed} vs produced {produced}")
+    finally:
+        topic.stop()
+    rec = dict(boot_s=boot_s, orders=topic.n, pumps=len(pumps), batches=batches, wall_s=wall,
+               orders_per_s=topic.n / wall, lag_p99_ms=lag, launches=launches, restarts=restarts,
+               committed=committed)
+    print(f"daemon orders: {topic.n} orders in {len(pumps)} pumps through the daemon's _pump_orders, "
+          f"{wall:.3f} s = {rec['orders_per_s']:.0f} orders/s, lag p99 {lag:.3f} ms, {batches} batches; "
+          f"{ORDERS} flagged on the flood's first batch and never before; committed offsets {committed} == "
+          f"produced; fused_update launches {launches}, restarts {restarts} ({gpu_line()})")
+    return rec
+
+
+def daemon_roles(device, n_warm=40, n_fault=4, interval_s=0.1, failover_timeout_s=1.0):
+    """A primary and a standby daemon on the card in this process: the
+    primary takes the clean batches through its front door; once the
+    standby's mirror equals its state it is stopped, the standby's
+    watchdog promotes it at epoch 1 with the primary's final state on
+    the card bit for bit, and the faulty batches then flag as in the
+    uninterrupted twin."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime.replication import ROLE_PRIMARY
+
+    width, per = 2048, 1
+    clean, faulty, _spans = e2e_bodies(width, n_warm, n_fault, per)
+    n = n_warm + n_fault
+    twin = twin_pipeline(device, DetectorConfig(), width)
+    feed_twin(twin, clean, faulty, range(n), n_warm, per)
+    with daemon_env("primary", ANOMALY_REPLICATION_PORT=0, ANOMALY_REPLICATION_INTERVAL_S=interval_s):
+        p, _boot = boot_daemon(device)
+    p_up = True
+    with daemon_env("standby", ANOMALY_ROLE="standby",
+                    ANOMALY_REPLICATION_TARGET=f"127.0.0.1:{p.repl_primary.port}",
+                    ANOMALY_REPLICATION_INTERVAL_S=interval_s, ANOMALY_FAILOVER_TIMEOUT_S=failover_timeout_s):
+        s, _boot = boot_daemon(device)
+    try:
+        check(s.detector.state.hll_bank.is_cuda, "the standby's detector is not on the card")
+        _kernels.reset_launches()
+        feed_daemon(p, clean, faulty, range(n_warm), n_warm, per, "primary daemon")
+        final = state_to_numpy(p.detector.state)
+        deadline = time.monotonic() + 60.0
+        while True:
+            arrays, _meta = s.repl_standby.snapshot()
+            if arrays and all(arrays[f].tobytes() == getattr(final, f).tobytes() for f in final._fields):
+                break
+            check(time.monotonic() < deadline, "the standby's mirror never reached the primary's state")
+            s.step()
+            time.sleep(interval_s / 2)
+        stats = p.repl_primary.stats()
+        holds = ms_pcts(list(p.ship_lock_holds))
+        t_kill = time.monotonic()
+        p.shutdown()
+        p_up = False
+        # The standby is stepped on this thread, so the primary's
+        # shutdown (its drain and final checkpoint) passes unwatched.
+        shutdown_s = time.monotonic() - t_kill
+        while s.role != ROLE_PRIMARY:
+            check(time.monotonic() - t_kill < 30.0, "the standby never promoted")
+            s.step()
+            time.sleep(0.01)
+        ttd = time.monotonic() - t_kill
+        check(s._fence.epoch == 1, f"promoted at epoch {s._fence.epoch}")
+        same_bits(state_to_numpy(s.detector.state), final, "promoted standby vs the primary's final state")
+        ks = range(n_warm, n)
+        feed_daemon(s, clean, faulty, ks, n_warm, per, "promoted standby")
+        launches = _kernels.LAUNCHES["fused_update"]
+        same_bits(state_to_numpy(s.detector.state), state_to_numpy(twin.detector.state),
+                  "promoted standby vs the uninterrupted twin")
+        same_flags(s.reports, twin.reports, ks, "promoted standby vs the twin")
+        at = [names for t, _r, names in s.reports if t == n_warm * DT_S]
+        check(at == [[f"service-{SLOW:02d}"]], f"promoted standby: the first faulty batch flags {at}")
+        restarts = no_restarts(s, "promoted standby")
+    finally:
+        s.shutdown()
+        if p_up:
+            p.shutdown()
+        twin.close()
+    rec = dict(ttd_s=ttd, shutdown_s=shutdown_s, failover_timeout_s=failover_timeout_s,
+               replication_lag_p99_ms=stats["ack_lag_p99_ms"],
+               deltas_shipped=stats["deltas_shipped"], snapshots_shipped=stats["snapshots_shipped"],
+               ship_lock_hold_ms=holds, launches=launches, restarts=restarts)
+    print(f"daemon roles: primary + standby daemons on the card, interval {interval_s} s; the standby's mirror "
+          f"== the primary's state, promoted at epoch 1 {ttd:.4f} s after the primary's shutdown began (the "
+          f"shutdown took {shutdown_s:.4f} s of it; watchdog {failover_timeout_s} s) with the "
+          f"primary's final state bit for bit; {n_fault} faulty batches: state and flags == the uninterrupted "
+          f"twin; replication lag p99 {stats['ack_lag_p99_ms']} ms over {stats['deltas_shipped']} deltas + "
+          f"{stats['snapshots_shipped']} snapshots; dispatch-lock hold per ship p50 {holds['p50']} p99 "
+          f"{holds['p99']} ms over {holds['n']}; fused_update launches {launches}, restarts {restarts} "
+          f"({gpu_line()})")
+    return rec
+
+
+def daemon_wide(device, n_warm=24, n_fault=3, per=8):
+    """``DetectorDaemon(DetectorConfig(sketch_impl="xla"))`` at
+    ``ANOMALY_BATCH=65536`` (its row budget raised to four batches, so a
+    batch's bodies are admitted before its step): the B = 65536 corpus
+    through the front door; state == the in-process twin bit for bit,
+    the same flags, one CMS-histogram launch a batch."""
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+
+    width = 65536
+    clean, faulty, _spans = e2e_bodies(width, n_warm, n_fault, per)
+    n = n_warm + n_fault
+    cfg = DetectorConfig(sketch_impl="xla")
+    twin = twin_pipeline(device, cfg, width)
+    feed_twin(twin, clean, faulty, range(n), n_warm, per)
+    with daemon_env("wide", ANOMALY_BATCH=width, ANOMALY_QUEUE_MAX_ROWS=4 * width):
+        d, boot_s = boot_daemon(device, cfg)
+    try:
+        _kernels.reset_launches()
+        wall = feed_daemon(d, clean, faulty, range(n), n_warm, per, "daemon wide")
+        launches = _kernels.LAUNCHES["cms_hist"]
+        check(launches == n == d.pipeline.stats.batches, f"daemon wide: {launches} cms_hist launches, "
+              f"{d.pipeline.stats.batches} batches, {n} fed")
+        same_bits(state_to_numpy(d.detector.state), state_to_numpy(twin.detector.state), "daemon wide vs the twin")
+        onset_flags(d.reports, n_warm, "daemon wide")
+        same_flags(d.reports, twin.reports, range(n), "daemon wide vs the twin")
+        restarts = no_restarts(d, "daemon wide")
+        lag = d.pipeline.stats.lag_p99_ms()
+    finally:
+        d.shutdown()
+        twin.close()
+    rec = dict(boot_s=boot_s, wall_s=wall, spans_per_s=n * width / wall, lag_p99_ms=lag, launches=launches,
+               restarts=restarts)
+    print(f"daemon wide: B={width} sketch_impl=xla, boot {boot_s:.3f} s; {n} batches of {per} bodies through "
+          f"the front door: {rec['spans_per_s']:.0f} spans/s answered and stepped, lag p99 {lag:.3f} ms; state "
+          f"== the in-process twin bit for bit, same flags; cms_hist launches {launches}, restarts {restarts} "
+          f"({gpu_line()})")
+    return rec
+
+
+def daemon_process(n_warm=40, fault_s=30.0):
+    """``python -m opentelemetry_demo_tpu_torch`` with no ``--device``
+    (the card) at the default knobs plus ephemeral ports and the front
+    door: its announce line, a ×10 fault POSTed through the front door
+    flagged on ``/metrics``, and on SIGTERM exit 0 with its checkpoint
+    written."""
+    import signal
+
+    from opentelemetry_demo_tpu_torch.runtime import checkpoint
+    from opentelemetry_demo_tpu_torch.runtime.replbench import _free_port
+    from opentelemetry_demo_tpu_torch.telemetry import metrics as tele_metrics
+
+    clean, faulty, _spans = e2e_bodies(2048, 40, 4, 1)
+    fd_port = _free_port()
+    with daemon_env("process", ANOMALY_FRONTDOOR_PORT=fd_port) as where:
+        env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONUNBUFFERED"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "opentelemetry_demo_tpu_torch"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    tail: list = []
+    try:
+        line = None
+        while line is None:
+            out = proc.stdout.readline()
+            check(out or proc.poll() is None, f"the daemon process exited rc={proc.returncode}: {tail[-20:]}")
+            check(time.perf_counter() - t0 < 300.0, "the daemon process never announced")
+            tail.append(out)
+            if "anomaly-detector:" in out:
+                line = out
+        announce_s = time.perf_counter() - t0
+        import re
+        import threading
+
+        threading.Thread(target=lambda: [tail.append(x) for x in proc.stdout], daemon=True).start()
+        metrics_port = int(re.search(r"metrics :(\d+)", line).group(1))
+        check("role primary" in line, f"announce: {line.strip()}")
+        client = DoorClient(fd_port)
+        target = f"service-{SLOW:02d}"
+        series = f'{tele_metrics.ANOMALY_FLAG_TOTAL}{{service="{target}"}}'
+        import http.client
+
+        def scrape() -> str:
+            conn = http.client.HTTPConnection("127.0.0.1", metrics_port, timeout=30.0)
+            try:
+                conn.request("GET", "/metrics")
+                return conn.getresponse().read().decode()
+            finally:
+                conn.close()
+
+        for k in range(n_warm):
+            status, _ = client.post("/v1/traces", clean[k % len(clean)])
+            check(status == 200, f"daemon process: clean body {k} answered {status}")
+            time.sleep(0.06)
+        # The daemon pumps on the wall clock here, so a rate-lane flag
+        # before the fault is possible; the fault must add flags.
+        before = metric_value(scrape(), series) or 0.0
+        t_fault = time.perf_counter()
+        k = 0
+        while (metric_value(scrape(), series) or 0.0) <= before:
+            check(time.perf_counter() - t_fault < fault_s, f"daemon process: {target} never flagged")
+            status, _ = client.post("/v1/traces", faulty[k % len(faulty)])
+            check(status == 200, f"daemon process: faulty body {k} answered {status}")
+            k += 1
+            time.sleep(0.06)
+        ttd_s = time.perf_counter() - t_fault
+        client.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"daemon process: SIGTERM exit {rc}: {tail[-20:]}")
+        check(checkpoint.exists(str(where / "ckpt")), "daemon process: no checkpoint written at SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    rec = dict(announce_s=announce_s, fault_bodies=k, ttd_s=ttd_s, flags_before_fault=before,
+               announce=line.strip())
+    print(f"daemon process: python -m opentelemetry_demo_tpu_torch (no --device) announced in {announce_s:.3f} s: "
+          f"{line.strip()}; {target} flagged on /metrics after {k} faulty bodies ({ttd_s:.3f} s); SIGTERM exit 0 "
+          f"with its checkpoint ({gpu_line()})")
+    return rec
+
+
+def daemon_live_fleet():
+    """``replbench.measure_reshard_live`` and ``measure_adoption`` with
+    their daemon subprocesses on the card (no ``--device``)."""
+    from opentelemetry_demo_tpu_torch.runtime.replbench import measure_adoption, measure_reshard_live
+
+    t0 = time.perf_counter()
+    live = measure_reshard_live()
+    live_s = time.perf_counter() - t0
+    adopt = measure_adoption()
+    check(live["live_survivor_answers"] and live["live_adoption_exact"], f"reshard live: {live}")
+    check(adopt["autoscale_ok"] and adopt["adoption_bitexact"],
+          f"adoption: {json.dumps(adopt, default=str)[:1500]}")
+    rec = dict(reshard_live=live, adoption=adopt, reshard_live_wall_s=live_s,
+               adoption_wall_s=time.perf_counter() - t0 - live_s)
+    print(f"daemon live fleet: reshard live ttd {live['live_sigkill_ttd_s']} s, survivor answers, adoption exact "
+          f"({rec['reshard_live_wall_s']:.1f} s); adoption drill: autoscale_ok, bit-exact, tta "
+          f"{adopt['autoscale_tta_s']} s (internal {adopt['adoption_tta_internal_s']} s), "
+          f"{adopt['autoscale_proposals_split']} split proposals ({rec['adoption_wall_s']:.1f} s) ({gpu_line()})")
+    return rec
+
+
+def phase_daemon(device, results):
+    """The detector daemon on the card: the front door into an
+    in-process daemon against its CPU and pipeline twins, the orders leg
+    through the daemon's pump, the resume from its shutdown checkpoint,
+    a primary/standby pair with promotion, the wide (K2) daemon, the
+    module entry point as a process, and the live fleet drills."""
+    t0 = time.perf_counter()
+    out = {}
+    out["doors"], d, twin = daemon_doors(device, results)
+    out["resume"] = daemon_resume(device, d, twin)
+    out["orders"] = daemon_orders(device)
+    out["roles"] = daemon_roles(device)
+    out["wide"] = daemon_wide(device)
+    out["process"] = daemon_process()
+    out["live_fleet"] = daemon_live_fleet()
+    shutil.rmtree(DAEMON_DIR, ignore_errors=True)
+    results["fused_update"]["launches_daemon"] = {
+        leg: out[leg]["launches"] for leg in ("doors", "resume", "orders", "roles")}
+    results["cms_hist"]["launches_daemon"] = {"wide": out["wide"]["launches"]}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"daemon phase: {out['wall_s']:.1f} s ({gpu_line()})")
+    return out
+
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -4320,6 +4929,7 @@ def main() -> int:
     time_travel = dict(history=phase_history(device, results), quality=phase_quality(device, results),
                        mitigation=phase_mitigation(device, results))
     fleet = phase_fleet(device, results)
+    daemon = phase_daemon(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -4347,13 +4957,13 @@ def main() -> int:
             library_ms=r["library_ms"], launches_doors=r.get("launches_doors"),
             launches_orders=r.get("launches_orders"), launches_read=r.get("launches_read"),
             launches_history=r.get("launches_history"), launches_quality=r.get("launches_quality"),
-            launches_fleet=r.get("launches_fleet"),
+            launches_fleet=r.get("launches_fleet"), launches_daemon=r.get("launches_daemon"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
          "doors": doors, "orders": orders, "read_side": read_side, "time_travel": time_travel,
-         "fleet": fleet, "state": state, "mesh": mesh,
+         "fleet": fleet, "daemon": daemon, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -28,10 +28,11 @@ container: the ``anomaly-aggregator`` compose/k8s service) and the
 loss of any shard can never take the global read surface down with
 it.
 
-The standalone entry point (the reference's ``main``, the compose/k8s
-``anomaly-aggregator`` service) reads ``utils/config.py``, which comes
-with the daemon; build :class:`FleetAggregator` and
-:class:`AggregatorService` directly until then.
+The standalone entry point, :func:`main` (the compose/k8s
+``anomaly-aggregator`` service), reads ``FLEET_KNOBS`` through
+``utils.config.fleet_config``:
+
+    python -m opentelemetry_demo_tpu_torch.runtime.aggregator
 """
 
 from __future__ import annotations
@@ -781,3 +782,57 @@ class AggregatorService:
             self._server.shutdown()
         self._server.server_close()
         self.aggregator.close()
+
+
+def main() -> None:
+    """Standalone aggregator tier (the compose/k8s
+    ``anomaly-aggregator`` service entry point)."""
+    from ..utils.config import fleet_config, fleet_tenant_map
+    from .fleet import parse_peer_list
+
+    fl = fleet_config()
+    shards = int(fl["ANOMALY_FLEET_SHARDS"])
+    port = int(fl["ANOMALY_AGGREGATOR_PORT"])
+    if shards < 2 or port < 0:
+        raise SystemExit(
+            "aggregator needs ANOMALY_FLEET_SHARDS >= 2 and "
+            "ANOMALY_AGGREGATOR_PORT >= 0"
+        )
+    # Index-aligned query addresses; the aggregator is NOT a shard, so
+    # self_index=-1 keeps every slot.
+    addrs = parse_peer_list(
+        str(fl["ANOMALY_FLEET_QUERY_PEERS"]), shards, self_index=-1
+    )
+    # Heartbeat (/healthz) addresses feed the ring-staleness repair:
+    # placement refreshes from the shard fleet blocks when the
+    # boot-time ring routes a read to a shard that no longer owns it.
+    health_addrs = parse_peer_list(
+        str(fl["ANOMALY_FLEET_PEERS"]), shards, self_index=-1
+    )
+    ring = HashRing(
+        [f"shard-{i}" for i in range(shards)],
+        vnodes=int(fl["ANOMALY_FLEET_VNODES"]),
+    )
+    aggregator = FleetAggregator(
+        addrs,
+        timeout_s=float(fl["ANOMALY_AGGREGATOR_TIMEOUT_S"]),
+        ring=ring,
+        tenant_map=fleet_tenant_map(fl["ANOMALY_FLEET_TENANTS"]),
+        health_addrs=health_addrs,
+    )
+    service = AggregatorService(aggregator, port=port)
+    service.start()
+    print(
+        f"anomaly-aggregator: query :{service.port} "
+        f"shards {sorted(addrs)} ring {ring.version():#x}",
+        flush=True,
+    )
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        service.stop()
+
+
+if __name__ == "__main__":
+    main()

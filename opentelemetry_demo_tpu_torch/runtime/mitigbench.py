@@ -538,7 +538,11 @@ def measure_collector(seed: int = 0) -> dict:
 def measure_shadow(seed: int = 0, device=None) -> dict:
     """The ``--shadow`` block: both verdict directions live,
     bit-identity + speedup, and the collector keep/drop ratio."""
-    rate_target = float(os.environ.get("ANOMALY_SHADOW_RATE") or 10.0)
+    from ..utils.config import SHADOW_KNOBS, env_float
+
+    rate_target = env_float(
+        "ANOMALY_SHADOW_RATE", SHADOW_KNOBS["ANOMALY_SHADOW_RATE"][1]
+    )
     ident = measure_shadow_identity(seed=seed, rate_target=rate_target, device=device)
     baseline = _preflight_loop(False, seed=seed, device=device)
     released = _preflight_loop(True, refuse=False, seed=seed, device=device)
@@ -586,11 +590,13 @@ def main() -> None:
     import json
     import sys
 
+    from ..utils.config import BENCH_KNOBS, env_int
+
     shadow_only = "--shadow" in sys.argv[1:]
     out: dict = {}
     if not shadow_only:
         out.update(measure_mitigation())
-    if shadow_only or int(os.environ.get("BENCH_SHADOW") or 1):
+    if shadow_only or env_int("BENCH_SHADOW", BENCH_KNOBS["BENCH_SHADOW"][1]):
         out.update(measure_shadow())
     print(json.dumps(out))
 

@@ -25,7 +25,6 @@ on the card unless ``device="cpu"`` is passed.
 
 from __future__ import annotations
 
-import os
 import tempfile
 import time
 
@@ -200,7 +199,12 @@ def measure_range_queries(
 def measure_replay(seed: int = 0, directory: str | None = None, device=None) -> dict:
     """Record → replay → compare; ONE result dict (the ``replay_*``
     fields)."""
-    target = float(os.environ.get("ANOMALY_HISTORY_REPLAY_RATE") or 10.0)
+    from ..utils.config import HISTORY_KNOBS, env_float
+
+    target = env_float(
+        "ANOMALY_HISTORY_REPLAY_RATE",
+        HISTORY_KNOBS["ANOMALY_HISTORY_REPLAY_RATE"][1],
+    )
     tmp = None
     if directory is None:
         tmp = tempfile.TemporaryDirectory(prefix="replaybench-")

@@ -32,10 +32,15 @@ witness. Also drives the aggregator's partial-answer contract (one
 shard blackholed via ``runtime.faultwire`` → labeled partial 200, never
 5xx) and the noisy-tenant quota isolation.
 
-Left out: the reference's live-fire legs (``measure_reshard_live``,
-``measure_adoption``) boot daemon subprocesses and come with the daemon.
+The live-fire legs boot daemon subprocesses of this package
+(``python -m opentelemetry_demo_tpu_torch.runtime.daemon``, with
+``--device`` passed through): :func:`measure_reshard_live` SIGKILLs a
+real victim shard mid-load and adopts its mirrored frame in process;
+:func:`measure_adoption` runs an adoptive pair with the autoscaler on
+the heir, ramps it into saturation, SIGKILLs the victim mid-resize and
+pins the heir's own ``/query/*`` answers against an unkilled witness.
 
-    python -m opentelemetry_demo_tpu_torch.runtime.replbench [--fleet]
+    python -m opentelemetry_demo_tpu_torch.runtime.replbench [--fleet [--no-live]] [--autoscale]
 
 prints one JSON line (on the card).
 """
@@ -588,12 +593,664 @@ def _measure_tenant_isolation(config: DetectorConfig, batch: int,
     }
 
 
+def _daemon_command(device: "str | None") -> list[str]:
+    """A daemon subprocess of this package; ``--device`` only when the
+    caller named one (the daemon's own default is the card)."""
+    import sys
+
+    cmd = [sys.executable, "-m", "opentelemetry_demo_tpu_torch.runtime.daemon"]
+    return cmd if device is None else cmd + ["--device", str(device)]
+
+
+def measure_reshard_live(
+    dead_after_s: float = 2.0,
+    batch: int = 128,
+    device: "str | None" = None,
+) -> dict:
+    """Live-fire reshard: the victim shard is a REAL daemon subprocess
+    under live Kafka + OTLP load, SIGKILLed mid-stream; an in-proc
+    survivor adopts its replicated frame once membership (heartbeating
+    the victim's real /healthz, with the double-check) declares it
+    dead. ``shard_reshard_ttd_s`` here is the deployment-shaped
+    number: real process death, real health silence, real frame
+    adoption. The victim daemon and the in-proc survivor run on the
+    card unless ``device`` names another."""
+    import http.client
+    import os
+    import re
+    import signal
+    import subprocess
+
+    from .fleet import (
+        FleetMembership,
+        http_health_alive,
+        merge_shard_arrays,
+        service_row_mask,
+    )
+    from .kafka_broker import KafkaBroker
+    from .kafka_orders import Order, encode_order
+    from .otlp_export import encode_export_request
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)
+    )))
+    config = DetectorConfig(num_services=8, hll_p=8, cms_width=512)
+    broker = KafkaBroker()
+    broker.start()
+    broker.ensure_topic("orders")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONUNBUFFERED"] = "1"
+    env.update({
+        "ANOMALY_OTLP_PORT": "0",
+        "ANOMALY_OTLP_GRPC_PORT": "-1",
+        "ANOMALY_METRICS_PORT": "0",
+        "ANOMALY_BATCH": str(batch),
+        "ANOMALY_PUMP_INTERVAL_S": "0.05",
+        "ANOMALY_NUM_SERVICES": "8",
+        "ANOMALY_CMS_WIDTH": "512",
+        "ANOMALY_HLL_P": "8",
+        "ANOMALY_INGEST_WORKERS": "0",
+        "ANOMALY_ROLE": "primary",
+        "ANOMALY_REPLICATION_PORT": "0",
+        "ANOMALY_REPLICATION_INTERVAL_S": "0.1",
+        "ANOMALY_FLEET_SERVICES": ",".join(FLEET_SERVICES),
+        "KAFKA_ADDR": f"127.0.0.1:{broker.port}",
+    })
+    env.pop("ANOMALY_CHECKPOINT", None)
+    proc = subprocess.Popen(
+        _daemon_command(device),
+        cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    mirror = None
+    try:
+        line = None
+        deadline = time.monotonic() + 180.0
+        while time.monotonic() < deadline:
+            out = proc.stdout.readline()
+            if not out:
+                if proc.poll() is not None:
+                    raise RuntimeError(
+                        f"victim shard exited rc={proc.returncode}"
+                    )
+                time.sleep(0.05)
+                continue
+            if "anomaly-detector:" in out:
+                line = out
+                break
+        if not line:
+            raise RuntimeError("victim shard never announced")
+        otlp_port = int(re.search(r"otlp-http :(\d+)", line).group(1))
+        repl_port = int(re.search(r"repl :(\d+)", line).group(1))
+        metrics_port = int(
+            re.search(r"metrics :(\d+)", line).group(1)
+        )
+
+        # Live load on both legs: orders into the broker + spans over
+        # OTLP at the victim.
+        for i in range(8):
+            broker.append("orders", encode_order(Order(
+                order_id=f"ord-{i}", tracking_id=f"trk-{i}",
+                shipping_cost_units=5.0, item_count=1,
+                product_ids=("EYE-PLO-25",), total_quantity=1,
+            )))
+        rng = np.random.default_rng(5)
+        body = encode_export_request(
+            _fleet_records(rng, "payment", 64)
+            + _fleet_records(rng, "frontend", 64)
+        )
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", otlp_port, timeout=10.0
+        )
+        conn.request(
+            "POST", "/v1/traces", body=body,
+            headers={"Content-Type": "application/x-protobuf"},
+        )
+        if conn.getresponse().status != 200:
+            raise RuntimeError("victim refused OTLP load")
+
+        # The survivor's mirror of the victim (its standby, in-proc).
+        mirror_fence = EpochFence(0)
+        mirror = ReplicationStandby(
+            f"127.0.0.1:{repl_port}", mirror_fence,
+            config_fingerprint=list(
+                config._replace(sketch_impl=None)
+            ),
+        )
+        mirror.start()
+        if not mirror.wait_for_state(60.0):
+            raise RuntimeError("mirror never bootstrapped")
+        # Wait until the mirror has actually absorbed the span load.
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            arrs, _m = mirror.snapshot()
+            if arrs and float(np.asarray(arrs["span_total"]).sum()) > 0:
+                break
+            time.sleep(0.1)
+
+        # The survivor shard, in-proc, with the SHARED service table.
+        survivor = _Shard(
+            "shard-0", config, batch, interval_s=0.1, device=device
+        )
+        membership = FleetMembership(
+            "shard-0", ["shard-1"],
+            dead_after_s=dead_after_s, rejoin_after_s=2.0,
+            reshard_budget=4, reshard_refill_s=60.0,
+            # The REAL double-check: the victim's live /healthz.
+            health_check=lambda s: http_health_alive(
+                f"127.0.0.1:{metrics_port}", timeout_s=2.0
+            ),
+        )
+        membership.observe("shard-1")
+
+        # SIGKILL, the real thing, mid-load.
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        t_kill = time.monotonic()
+        events: list = []
+        give_up = t_kill + dead_after_s * 20 + 30.0
+        while time.monotonic() < give_up and not events:
+            events = membership.tick()
+            if not events:
+                time.sleep(0.05)
+        if not events:
+            raise RuntimeError("membership never declared the victim dead")
+        mirror_arrays, mirror_meta = mirror.snapshot()
+        dst = survivor.arrays()
+        mask = service_row_mask(
+            list(mirror_meta.get("service_names") or []),
+            survivor.pipe.tensorizer.service_names,
+            int(dst["lat_mean"].shape[0]),
+        )
+        merged = merge_shard_arrays(dst, mirror_arrays, mask)
+        meta = {
+            "service_names": list(FLEET_SERVICES),
+            "config": list(config._replace(sketch_impl=None)),
+        }
+        docs = _query_docs(merged, meta, ["payment", "frontend"])
+        ttd_s = time.monotonic() - t_kill
+        answered = all(
+            max(d["cardinality"]["estimate"]) > 0.0
+            for d in docs.values()
+        )
+        # Adoption exactness, pinned INDEPENDENTLY of the merge
+        # implementation: the survivor ingested nothing in this leg,
+        # so the post-merge answers for the victim's services must
+        # equal the answers computed from the mirror frame ALONE —
+        # the unkilled witness for the live leg. (Recomputing the
+        # max/add here would just re-run merge_shard_arrays' own
+        # arithmetic and could never fail.)
+        witness_docs = _query_docs(
+            mirror_arrays, meta, ["payment", "frontend"]
+        )
+        exact = docs == witness_docs
+        survivor.stop()
+        return {
+            "live_sigkill_ttd_s": round(ttd_s, 4),
+            "live_survivor_answers": answered,
+            "live_adoption_exact": exact,
+            "live_reshards_applied": membership.reshards_total,
+        }
+    finally:
+        if mirror is not None:
+            mirror.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=15)
+        broker.stop()
+
+
+def _free_port() -> int:
+    """Reserve an ephemeral port number (bind/close: the usual bench
+    race window, acceptable on a loopback-only drill)."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http_json(port: int, path: str, timeout_s: float = 2.0):
+    """GET 127.0.0.1:port/path as parsed JSON; None on any failure."""
+    import http.client
+    import json as _json
+
+    try:
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", port, timeout=timeout_s
+        )
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        if resp.status != 200:
+            return None
+        return _json.loads(body)
+    except Exception:  # noqa: BLE001 — a dead/booting shard is "no"
+        return None
+
+
+def _read_announce(proc, deadline_s: float = 180.0) -> dict:
+    """Block until a daemon subprocess prints its announce line; then
+    keep DRAINING its stdout on a thread (an unread pipe would block
+    the daemon's own prints mid-drill)."""
+    import re
+    import threading
+
+    line = None
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        out = proc.stdout.readline()
+        if not out:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"shard exited rc={proc.returncode} before announce"
+                )
+            time.sleep(0.05)
+            continue
+        if "anomaly-detector:" in out:
+            line = out
+            break
+    if not line:
+        raise RuntimeError("shard never announced")
+
+    def _drain() -> None:
+        for _ in proc.stdout:
+            pass
+
+    threading.Thread(target=_drain, daemon=True).start()
+    return {
+        "otlp": int(re.search(r"otlp-http :(\d+)", line).group(1)),
+        "query": int(re.search(r"query :(\d+)", line).group(1)),
+    }
+
+
+def measure_adoption(
+    dead_after_s: float = 2.0,
+    batch: int = 256,
+    quiet_s: float = 5.0,
+    device: "str | None" = None,
+) -> dict:
+    """The ELASTIC-fleet live drill (`make autoscalebench`): two REAL
+    daemon shards wired as an adoptive pair (each mirrors its
+    ring-successor's replication stream) with the autoscaler enabled
+    on the heir. Ramp OTLP load until the heir's admission saturates
+    and the autoscaler proposes scale-out, then SIGKILL the victim
+    shard mid-resize and watch the heir adopt its keyspace with ZERO
+    operator action — membership double-check, in-daemon monoid merge
+    under the dispatch lock, new ring version.
+
+    - ``autoscale_tta_s`` — SIGKILL → the heir's /healthz reporting
+      the adoption applied (the zero-operator time-to-adopt);
+    - ``autoscale_ok`` — the whole contract: a split was proposed
+      under real saturation, adoption happened automatically, the
+      heir's post-settle /query/* answers for the victim's keys are
+      BIT-EXACT against an unkilled witness (both shards' pre-kill
+      mirror frames merged in-proc by the same monoid ops), and the
+      controller stays quiet (no further proposals) for ``quiet_s``
+      after the resize — no oscillation.
+
+    Both daemons run on the card unless ``device`` names another.
+    """
+    import http.client
+    import json as _json
+    import os
+    import signal
+    import subprocess
+
+    from .fleet import (
+        HashRing,
+        merge_shard_arrays,
+        service_row_mask,
+        shard_key,
+        tenant_of,
+    )
+    from .otlp_export import encode_export_request
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)
+    )))
+    config = DetectorConfig(num_services=8, hll_p=8, cms_width=512)
+    heartbeat_s = 0.25
+    metrics_ports = [_free_port(), _free_port()]
+    repl_ports = [_free_port(), _free_port()]
+    peers = ",".join(f"127.0.0.1:{p}" for p in metrics_ports)
+    repl_peers = ",".join(f"127.0.0.1:{p}" for p in repl_ports)
+
+    base_env = dict(os.environ)
+    base_env.pop("ANOMALY_CHECKPOINT", None)
+    base_env["PYTHONPATH"] = repo + os.pathsep + base_env.get(
+        "PYTHONPATH", ""
+    )
+    base_env["PYTHONUNBUFFERED"] = "1"
+    base_env.update({
+        "ANOMALY_OTLP_PORT": "0",
+        "ANOMALY_OTLP_GRPC_PORT": "-1",
+        "ANOMALY_QUERY_PORT": "0",
+        "ANOMALY_BATCH": str(batch),
+        "ANOMALY_PUMP_INTERVAL_S": "0.2",
+        "ANOMALY_NUM_SERVICES": "8",
+        "ANOMALY_CMS_WIDTH": "512",
+        "ANOMALY_HLL_P": "8",
+        "ANOMALY_INGEST_WORKERS": "0",
+        "ANOMALY_ROLE": "primary",
+        "ANOMALY_REPLICATION_INTERVAL_S": "0.1",
+        # Selftrace spans would keep mutating the heir's sketches
+        # after the witness snapshot — off for the bit-exact pin.
+        "ANOMALY_SELFTRACE_ENABLE": "0",
+        # Tight snapshot cache: the post-adoption /query/* pin must
+        # not be answered from a pre-merge cached snapshot.
+        "ANOMALY_QUERY_MAX_STALENESS_S": "0.25",
+        "ANOMALY_FLEET_SHARDS": "2",
+        "ANOMALY_FLEET_PEERS": peers,
+        "ANOMALY_FLEET_REPL_PEERS": repl_peers,
+        "ANOMALY_FLEET_SERVICES": ",".join(FLEET_SERVICES),
+        "ANOMALY_FLEET_HEARTBEAT_S": str(heartbeat_s),
+        "ANOMALY_FLEET_DEAD_AFTER_S": str(dead_after_s),
+        "ANOMALY_FLEET_REJOIN_AFTER_S": "2.0",
+        "KAFKA_ADDR": "",
+    })
+    heir_env = dict(base_env)
+    heir_env.update({
+        "ANOMALY_FLEET_SHARD_INDEX": "0",
+        "ANOMALY_METRICS_PORT": str(metrics_ports[0]),
+        "ANOMALY_REPLICATION_PORT": str(repl_ports[0]),
+        # The elastic half under test: opt-in autoscaler on the heir,
+        # with a small row budget so the ramp actually saturates.
+        "ANOMALY_AUTOSCALE_ENABLE": "1",
+        "ANOMALY_AUTOSCALE_ACT_BATCHES": "3",
+        "ANOMALY_AUTOSCALE_CLEAR_BATCHES": "120",
+        "ANOMALY_AUTOSCALE_BUDGET": "2",
+        "ANOMALY_AUTOSCALE_REFILL_S": "300.0",
+        "ANOMALY_QUEUE_MAX_ROWS": "1024",
+    })
+    victim_env = dict(base_env)
+    victim_env.update({
+        "ANOMALY_FLEET_SHARD_INDEX": "1",
+        "ANOMALY_METRICS_PORT": str(metrics_ports[1]),
+        "ANOMALY_REPLICATION_PORT": str(repl_ports[1]),
+    })
+
+    # Route load by the SAME ring the daemons build (member ids,
+    # default vnodes, default tenant map).
+    ring = HashRing(["shard-0", "shard-1"], vnodes=128)
+    owner_of = {
+        svc: ring.owner(shard_key(svc, tenant_of(svc, {})))
+        for svc in FLEET_SERVICES
+    }
+    heir_services = [s for s, o in owner_of.items() if o == "shard-0"]
+    victim_services = [s for s, o in owner_of.items() if o == "shard-1"]
+    if not heir_services or not victim_services:
+        raise RuntimeError("ring left one shard without keyspace")
+
+    def spawn(env):
+        return subprocess.Popen(
+            _daemon_command(device),
+            cwd=repo, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+
+    def post_spans(otlp_port: int, services, rows: int, rng) -> None:
+        body = encode_export_request([
+            rec
+            for svc in services
+            for rec in _fleet_records(rng, svc, rows)
+        ])
+        try:
+            conn = http.client.HTTPConnection(
+                "127.0.0.1", otlp_port, timeout=5.0
+            )
+            conn.request(
+                "POST", "/v1/traces", body=body,
+                headers={"Content-Type": "application/x-protobuf"},
+            )
+            conn.getresponse().read()
+            conn.close()
+        except Exception:  # noqa: BLE001 — 429/refused mid-saturation
+            pass            # IS the drill working
+
+    heir = spawn(heir_env)
+    victim = spawn(victim_env)
+    witness_victim = witness_heir = None
+    try:
+        heir_ports = _read_announce(heir)
+        victim_ports = _read_announce(victim)
+
+        # Membership must see the pair before anything can be adopted.
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            doc = _http_json(metrics_ports[0], "/healthz")
+            fleet_doc = (doc or {}).get("fleet") or {}
+            if fleet_doc.get("shards_live") == 2:
+                break
+            time.sleep(0.1)
+        else:
+            raise RuntimeError("heir never saw the victim alive")
+
+        # The unkilled WITNESS: both shards' replication streams
+        # mirrored in-proc — their pre-kill frames merged by the same
+        # monoid ops are what the heir must serve after adopting.
+        fingerprint = list(config._replace(sketch_impl=None))
+        witness_victim = ReplicationStandby(
+            f"127.0.0.1:{repl_ports[1]}", EpochFence(0),
+            config_fingerprint=fingerprint, standby_id="witness-victim",
+        )
+        witness_heir = ReplicationStandby(
+            f"127.0.0.1:{repl_ports[0]}", EpochFence(0),
+            config_fingerprint=fingerprint, standby_id="witness-heir",
+        )
+        witness_victim.start()
+        witness_heir.start()
+        if not witness_victim.wait_for_state(60.0):
+            raise RuntimeError("victim witness never bootstrapped")
+        if not witness_heir.wait_for_state(60.0):
+            raise RuntimeError("heir witness never bootstrapped")
+
+        # RAMP until brownout: blast the heir's keyspace far past its
+        # row budget until the saturation streak crosses the acting
+        # edge and the autoscaler proposes scale-out. (The victim gets
+        # a modest stream so its frame is worth adopting.)
+        rng = np.random.default_rng(17)
+        split_seen = False
+        iters = 0
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            post_spans(heir_ports["otlp"], heir_services, 192, rng)
+            if iters < 20:
+                post_spans(victim_ports["otlp"], victim_services, 48, rng)
+            iters += 1
+            doc = _http_json(metrics_ports[0], "/healthz")
+            auto = (doc or {}).get("autoscale") or {}
+            if int(auto.get("proposals_split") or 0) >= 1:
+                split_seen = True
+                break
+            time.sleep(0.05)
+        if not split_seen:
+            raise RuntimeError(
+                "autoscaler never proposed scale-out under saturation"
+            )
+
+        # Quiesce: load OFF, wait for both witness mirrors to go
+        # static (the daemons' own adoption mirrors ride the same
+        # streams, so static witnesses mean static frames everywhere).
+        def mirror_sum(standby) -> float | None:
+            arrs, _m = standby.snapshot()
+            if not arrs:
+                return None
+            return float(np.asarray(arrs["span_total"]).sum())
+
+        stable_since = None
+        last = None
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            now = (mirror_sum(witness_victim), mirror_sum(witness_heir))
+            if None not in now and now == last:
+                if stable_since is None:
+                    stable_since = time.monotonic()
+                elif time.monotonic() - stable_since >= 1.5:
+                    break
+            else:
+                stable_since = None
+            last = now
+            time.sleep(0.25)
+        else:
+            raise RuntimeError("mirrors never quiesced after the ramp")
+
+        v_arrays, v_meta = witness_victim.snapshot()
+        h_arrays, h_meta = witness_heir.snapshot()
+        mask = service_row_mask(
+            list(v_meta.get("service_names") or []),
+            list(h_meta.get("service_names") or []),
+            int(h_arrays["lat_mean"].shape[0]),
+            owned=victim_services,
+        )
+        witness_merged = merge_shard_arrays(h_arrays, v_arrays, mask)
+        wmeta = {
+            "service_names": list(h_meta.get("service_names") or []),
+            "config": fingerprint,
+        }
+        # Pin the PURE state reads (cardinality + zscore): the top-k
+        # candidate ring is host-side ingest bookkeeping, not sketch
+        # state, so a witness merge cannot reproduce it over HTTP.
+        from . import query as q
+
+        witness_docs = _json.loads(_json.dumps({
+            svc: {
+                "cardinality": q.cardinality(
+                    witness_merged, wmeta, svc
+                ),
+                "zscore": q.zscore_state(witness_merged, wmeta, svc),
+            }
+            for svc in victim_services
+        }))
+
+        # SIGKILL mid-resize: the proposal just landed, the victim
+        # dies. Nobody calls a merge — the heir must do it alone.
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.wait(timeout=30)
+        t_kill = time.monotonic()
+        adoptions: dict = {}
+        give_up = t_kill + dead_after_s * 20 + 30.0
+        while time.monotonic() < give_up:
+            doc = _http_json(metrics_ports[0], "/healthz", timeout_s=1.0)
+            adoptions = (
+                (doc or {}).get("fleet") or {}
+            ).get("adoptions") or {}
+            if int(adoptions.get("total") or 0) >= 1:
+                break
+            time.sleep(0.02)
+        tta_s = time.monotonic() - t_kill
+        adopted = int(adoptions.get("total") or 0) >= 1
+        if not adopted:
+            raise RuntimeError("heir never adopted the victim's keyspace")
+
+        # Post-settle /query/* pin: the heir's own query plane must
+        # answer the victim's keys bit-exactly as the witness merge.
+        # Retried briefly: the engine's snapshot cache may still hold
+        # the last pre-merge state for one staleness window.
+        def fetch_docs() -> dict:
+            out: dict = {}
+            for svc in victim_services:
+                docs = {}
+                for kind, path in (
+                    ("cardinality", f"/query/cardinality?service={svc}"),
+                    ("zscore", f"/query/zscore?service={svc}"),
+                ):
+                    answer = _http_json(heir_ports["query"], path)
+                    data = (answer or {}).get("data") or {}
+                    data.pop("timeline", None)  # engine-local, not state
+                    docs[kind] = data
+                out[svc] = docs
+            return out
+
+        got: dict = {}
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline:
+            got = fetch_docs()
+            if got == witness_docs:
+                break
+            time.sleep(0.25)
+        bitexact = got == witness_docs
+        answered = all(
+            max(d["cardinality"].get("estimate") or [0.0]) > 0.0
+            for d in got.values()
+        )
+
+        # NO OSCILLATION: the controller must sit quiet after the
+        # resize — no further proposals, no further ring changes.
+        doc = _http_json(metrics_ports[0], "/healthz")
+        auto0 = (doc or {}).get("autoscale") or {}
+        time.sleep(quiet_s)
+        doc = _http_json(metrics_ports[0], "/healthz")
+        auto1 = (doc or {}).get("autoscale") or {}
+        fleet1 = (doc or {}).get("fleet") or {}
+        quiet = (
+            auto1.get("proposals_split") == auto0.get("proposals_split")
+            and auto1.get("proposals_join") == auto0.get("proposals_join")
+            and int(
+                (fleet1.get("adoptions") or {}).get("total") or 0
+            ) == 1
+        )
+        mismatch = None
+        if not bitexact:
+            # Small enough to ride the json line; a failed pin without
+            # the two answer sets is undebuggable after the fact.
+            mismatch = {"got": got, "witness": witness_docs}
+        return {
+            "autoscale_tta_s": round(tta_s, 4),
+            "autoscale_ok": bool(
+                split_seen and adopted and bitexact and answered and quiet
+            ),
+            "adoption_mismatch": mismatch,
+            "autoscale_proposals_split": auto1.get("proposals_split"),
+            "autoscale_frozen": auto1.get("frozen"),
+            "adoption_bitexact": bitexact,
+            "adoption_answers_victim_keys": answered,
+            "adoption_no_oscillation": quiet,
+            "adoption_tta_internal_s": adoptions.get("last_tta_s"),
+            "adoption_victim_services": victim_services,
+            "adoption_dead_after_s": dead_after_s,
+            "adoption_heartbeat_s": heartbeat_s,
+        }
+    finally:
+        for standby in (witness_victim, witness_heir):
+            if standby is not None:
+                standby.stop()
+        for proc in (heir, victim):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=15)
+
+
 def main() -> None:
     import json
     import sys
 
+    if "--autoscale" in sys.argv[1:]:
+        # The elastic-fleet live leg alone.
+        print(json.dumps(measure_adoption()))
+        return
     if "--fleet" in sys.argv[1:]:
-        print(json.dumps(measure_reshard()))
+        out = measure_reshard()
+        # The live-fire SIGKILL legs (slow: real daemon subprocesses
+        # boot); skip with --no-live for quick iterations.
+        if "--no-live" not in sys.argv[1:]:
+            out.update(measure_reshard_live())
+            out["fleet_ok"] = bool(
+                out["fleet_ok"]
+                and out["live_survivor_answers"]
+                and out["live_adoption_exact"]
+            )
+            # The autoscale leg, folded in: saturation-driven
+            # scale-out + SIGKILL mid-resize + automatic adoption.
+            out.update(measure_adoption())
+            out["fleet_ok"] = bool(
+                out["fleet_ok"] and out["autoscale_ok"]
+            )
+        print(json.dumps(out))
         return
     print(json.dumps(measure_failover()))
 
