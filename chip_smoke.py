@@ -167,6 +167,27 @@ report's flags equal, the final state equal. Each leg prints virtual
 seconds, spans, wall, spans/s, steps, the card's busy share of the
 traced leg and the lag p99.
 
+The standalone stack follows (``phase_stack``), started the way its
+users start it. ``stack_http``: ``serve_shop.build`` on the card (the
+gateway with its web, mobile, ``/jaeger``, ``/grafana``, ``/loadgen``,
+``/feature``, ``/metrics`` and ``/otlp-http`` surfaces, B = 512, 32
+services), ``LoadControl`` at 5 users for 30 s beside 4 client threads
+running cart + checkout on ``/api``, every edge route fetched once,
+``paymentFailure`` through the flag editor and ``payment`` flagged after
+it and not before; every ``on_spans`` flush recorded and replayed into a
+CPU pipeline (reports and state equal), and the fused-update kernel's
+launches equal to the steps and to the sketch kernels in the trace.
+``stack_grpc`` (where ``grpc`` imports): ``GetProduct``,
+``ListProducts`` and ``PlaceOrder`` over the gRPC edge against the HTTP
+routes. ``stack_compose``: the port's daemon and ``serve_shop
+--otlp-endpoint`` as processes on the card, ``payment`` flagged on the
+daemon's ``/metrics`` and the shop's logs stored there.
+``stack_kafka``: ``serve_kafka``, ``serve_shop --kafka`` and the daemon
+with ``KAFKA_ADDR`` as three processes, ``kafkaQueueProblems`` flagging
+``checkout-orders`` and all three consumer groups committed.
+``stack_spine``: spinebench's ``measure_e2e`` with its kernel
+reference. The kernel line gains ``launches_stack``.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -4311,7 +4332,12 @@ def shop_twin(rig, what) -> None:
           f"{what}: {len(got)} reports on the card, {len(events)} on the CPU")
     for (t, a), (u, b) in zip(got, events):
         check(t == u and a == b, f"{what}: flags at t={t}: card {a}, CPU {b} (t={u})")
-    card, cpu = rig.pipeline.state_snapshot()[0], pipe.state_snapshot()[0]
+    snapshots_close(rig.pipeline.state_snapshot()[0], pipe.state_snapshot()[0], what)
+
+
+def snapshots_close(card: dict, cpu: dict, what) -> None:
+    """Two ``state_snapshot`` dicts: integer fields exact, floats within
+    RTOL / ATOL."""
     for name, y in cpu.items():
         x = card[name]
         check(x.dtype == y.dtype and x.shape == y.shape, f"{what}: {name} dtype/shape")
@@ -4502,6 +4528,596 @@ def phase_shop(device, results):
         results[name]["launches_shop"] = {leg: rec["all_launches"][name] for leg, rec in out.items()}
     out["wall_s"] = time.perf_counter() - t0
     print(f"shop phase: {out['wall_s']:.1f} s ({gpu_line()})")
+    return out
+
+
+# -- the standalone stack: the shop's edges, its processes, spinebench ---------------
+
+STACK_USERS = 5  # LoadControl's default swarm, the upstream demo's LOCUST_USERS
+STACK_LOAD_S = 30.0  # wall seconds of load before the fault
+STACK_FLAG_S = 60.0  # longest wait for a flag after the flip
+STACK_CLIENTS = 4  # client threads running cart + checkout beside the load
+STACK_THINK_S = 0.5  # a client's pause between checkouts
+STACK_WARM_BATCHES = 40  # the compose daemon's batches before the fault (its CUSUM warm-up is 8)
+STACK_ROUTES = ("/", "/product/TEL-DOB-10", "/api/products", "/feature/", "/jaeger", "/grafana", "/loadgen",
+                "/metrics")
+PAYMENT_FAILURE = {"flags": {"paymentFailure": {
+    "state": "ENABLED", "variants": {"on": 1.0, "off": 0.0}, "defaultVariant": "on"}}}
+KAFKA_QUEUE_PROBLEMS = {"flags": {"kafkaQueueProblems": {
+    "state": "ENABLED", "variants": {"on": 80, "off": 0}, "defaultVariant": "on"}}}
+
+
+def http_call(base: str, method: str, path: str, doc=None, timeout: float = 30.0) -> tuple[int, bytes, float]:
+    """One request: (status, body, seconds). An HTTP error status is an
+    answer, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"} if data is not None else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def http_checkout(base: str, user: str) -> list[tuple[int, bytes, float]]:
+    """Cart then checkout over ``/api``, as the reference's topology tests do."""
+    return [
+        http_call(base, "POST", "/api/cart", {"userId": user, "item": {"productId": "TEL-DOB-10", "quantity": 1}}),
+        http_call(base, "POST", "/api/checkout", {"userId": user, "email": f"{user}@example.com",
+                                                 "currencyCode": "USD"}),
+    ]
+
+
+def grpc_importable() -> bool:
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def flag_count(text: str, service: str) -> float:
+    from opentelemetry_demo_tpu_torch.telemetry import metrics as tele_metrics
+
+    return metric_value(text, f'{tele_metrics.ANOMALY_FLAG_TOTAL}{{service="{service}"}}') or 0.0
+
+
+class Background:
+    """``fn`` on a thread of its own; ``result`` joins it and raises
+    what it raised (a failed check fails the run where it is joined)."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._out: dict = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised by result()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self, timeout_s: float = 600.0):
+        self._thread.join(timeout_s)
+        check(not self._thread.is_alive(), f"a background check did not finish in {timeout_s} s")
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def stack_twin(stack, calls, events, what) -> int:
+    """The recorded ``on_spans`` flushes replayed into the port's
+    pipeline on the CPU at the same config and width: every report's
+    flags equal, the final state equal (integers exact, floats within
+    RTOL / ATOL). Returns the replay's steps."""
+    from opentelemetry_demo_tpu_torch.models import AnomalyDetector
+    from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
+
+    pipe = stack.pipeline
+    cpu_events = []
+    twin = DetectorPipeline(AnomalyDetector(pipe.detector.config, device="cpu"), flags=stack.shop.flags,
+                            on_report=lambda t, rep, flagged: cpu_events.append((t, sorted(flagged))),
+                            batch_size=pipe.tensorizer.batch_size)
+    for t, spans in calls:
+        twin.submit(spans)
+        twin.pump(t)
+    twin.drain()
+    check(len(events) == len(cpu_events) == pipe.stats.batches == twin.stats.batches,
+          f"{what}: {len(events)} reports on the card ({pipe.stats.batches} steps), {len(cpu_events)} on the CPU")
+    for (t, a), (u, b) in zip(events, cpu_events):
+        check(t == u and a == b, f"{what}: flags at t={t}: card {a}, CPU {b} (t={u})")
+    check(pipe.stats.spans == twin.stats.spans == sum(len(s) for _, s in calls),
+          f"{what}: {pipe.stats.spans} spans on the card, {twin.stats.spans} on the CPU")
+    snapshots_close(pipe.state_snapshot()[0], twin.state_snapshot()[0], what)
+    return twin.stats.batches
+
+
+def grpc_leg(stack, base: str) -> dict:
+    """``GetProduct``, ``ListProducts`` and ``PlaceOrder`` over the gRPC
+    edge beside the gateway, against the HTTP routes for the same
+    product and the same cart. Requests are encoded and answers decoded
+    by field number (proto/demo.proto) with the wire primitives."""
+    import grpc
+
+    from opentelemetry_demo_tpu_torch.runtime import wire
+
+    def money(buf) -> tuple[str, int, int]:
+        f = wire.scan_fields(buf)
+        return (wire.first(f, 1, b"").decode(), wire.to_int64(int(wire.first(f, 2, 0) or 0)),
+                wire.to_int64(int(wire.first(f, 3, 0) or 0)))
+
+    def product(buf) -> dict:
+        f = wire.scan_fields(buf)
+        return dict(id=wire.first(f, 1, b"").decode(), name=wire.first(f, 2, b"").decode(),
+                    price=money(wire.first(f, 5, b"")))
+
+    def usd(doc) -> tuple[str, int, int]:
+        return (doc["currencyCode"], int(doc["units"]), int(doc["nanos"]))
+
+    channel = grpc.insecure_channel(f"127.0.0.1:{stack.grpc_edge.port}")
+    t0 = time.perf_counter()
+    try:
+        def call(path: str, body: bytes) -> bytes:
+            return channel.unary_unary(path)(body, timeout=30)
+
+        listed = [product(p) for p in wire.scan_fields(call("/oteldemo.ProductCatalogService/ListProducts", b"")
+                                                       ).get(1, [])]
+        status, body, _ = http_call(base, "GET", "/api/products")
+        check(status == 200, f"stack grpc: /api/products answered {status}")
+        http_products = json.loads(body)["products"]
+        check([p["id"] for p in listed] == [p["id"] for p in http_products]
+              and [p["name"] for p in listed] == [p["name"] for p in http_products],
+              f"stack grpc: ListProducts {[p['id'] for p in listed]} against /api/products")
+        pid = "TEL-DOB-10"
+        got = product(call("/oteldemo.ProductCatalogService/GetProduct", wire.encode_len(1, pid.encode())))
+        status, body, _ = http_call(base, "GET", f"/api/products/{pid}")
+        want = json.loads(body)
+        check(status == 200 and got["id"] == want["id"] == pid and got["name"] == want["name"],
+              f"stack grpc: GetProduct {got} against /api/products/{pid} {want}")
+        check(abs(got["price"][1] + got["price"][2] / 1e9 - want["priceUsd"]) < 1e-6,
+              f"stack grpc: GetProduct price {got['price']} against {want['priceUsd']}")
+        # The same cart through each edge: two units of one product.
+        item = wire.encode_len(1, pid.encode()) + wire.encode_int(2, 2)
+        call("/oteldemo.CartService/AddItem", wire.encode_len(1, b"grpc-buyer") + wire.encode_len(2, item))
+        placed = call("/oteldemo.CheckoutService/PlaceOrder",
+                      wire.encode_len(1, b"grpc-buyer") + wire.encode_len(2, b"USD")
+                      + wire.encode_len(3, b"grpc-buyer@example.com"))
+        order = wire.scan_fields(wire.first(wire.scan_fields(placed), 1, b""))
+        g_items = []
+        for raw in order.get(5, []):
+            f = wire.scan_fields(raw)
+            ci = wire.scan_fields(wire.first(f, 1, b""))
+            g_items.append((wire.first(ci, 1, b"").decode(), int(wire.first(ci, 2, 0)), money(wire.first(f, 2, b""))))
+        g_ship = money(wire.first(order, 3, b""))
+        check(http_call(base, "POST", "/api/cart", {"userId": "http-buyer",
+                                                    "item": {"productId": pid, "quantity": 2}})[0] == 200,
+              "stack grpc: /api/cart")
+        status, body, _ = http_call(base, "POST", "/api/checkout", {"userId": "http-buyer",
+                                                                   "email": "http-buyer@example.com",
+                                                                   "currencyCode": "USD"})
+        check(status == 200, f"stack grpc: /api/checkout answered {status}: {body[:200]!r}")
+        h = json.loads(body)
+        h_items = [(i["item"]["productId"], int(i["item"]["quantity"]), usd(i["cost"])) for i in h["items"]]
+        h_ship = usd(h["shippingCost"])
+        check(wire.first(order, 1, b"").decode() and g_items == h_items,
+              f"stack grpc: PlaceOrder items {g_items}; /api/checkout {h_items}")
+        # The shipping quote is drawn per order (8-12.50 USD an item, the
+        # upstream quote's random per-item rate), through either edge.
+        for ship in (g_ship, h_ship):
+            check(ship[0] == "USD" and 8.0 * 2 <= ship[1] + ship[2] / 1e9 <= 12.5 * 2,
+                  f"stack grpc: shipping {ship} for two items")
+    finally:
+        channel.close()
+    rec = dict(products=len(listed), items=g_items, shipping=(g_ship, h_ship), wall_s=time.perf_counter() - t0)
+    print(f"stack_grpc: ListProducts {len(listed)} = /api/products, GetProduct {pid} = /api/products/{pid}, "
+          f"PlaceOrder items {g_items} = /api/checkout's (shipping {g_ship} and {h_ship}, drawn per order) "
+          f"({rec['wall_s']:.3f} s)")
+    return rec
+
+
+def stack_http(device) -> dict:
+    """The in-process stack through ``serve_shop.build`` on ``device``
+    (B = 512, 32 services): ``LoadControl`` at 5 users for 30 s of wall
+    beside 4 client threads running cart + checkout on ``/api``, every
+    edge route fetched once, a JSON body to ``/otlp-http/v1/traces``,
+    the gRPC leg where ``grpc`` imports, then ``paymentFailure`` through
+    the flag editor and checkouts until ``payment`` is flagged. Every
+    ``on_spans`` flush is recorded and replayed into a CPU pipeline."""
+    import threading
+
+    from torch.autograd import DeviceType
+
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.serve_shop import build, parser
+
+    grpc_on = grpc_importable()
+    t_build = time.perf_counter()
+    args = parser().parse_args(["--host", "127.0.0.1", "--port", "0", "--users", "0", "--seed", "0",
+                                "--device", device.type, "--grpc-port", "0" if grpc_on else "-1"])
+    stack = build(args)
+    build_s = time.perf_counter() - t_build
+    gw, pipe = stack.gateway, stack.pipeline
+    base = f"http://127.0.0.1:{gw.port}"
+    calls, events = [], []
+    record_spans = gw.on_spans
+
+    def on_spans(t, spans):
+        calls.append((t, list(spans)))
+        record_spans(t, spans)
+
+    gw.on_spans = on_spans
+    report = pipe.on_report
+
+    def on_report(t, rep, flagged):
+        events.append((t, sorted(flagged)))
+        report(t, rep, flagged)
+
+    pipe.on_report = on_report
+    closed = False
+    try:
+        with traced() as prof:
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            stack.load.set_users(STACK_USERS)
+            stop = threading.Event()
+            answers: list = []
+
+            def client(i: int) -> None:
+                k = 0
+                while not stop.is_set():
+                    answers.extend((time.perf_counter(), *a) for a in http_checkout(base, f"client-{i}-{k}"))
+                    k += 1
+                    stop.wait(STACK_THINK_S)
+
+            clients = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(STACK_CLIENTS)]
+            for th in clients:
+                th.start()
+            time.sleep(STACK_LOAD_S)
+            # The load goes on through the routes, the gRPC leg and the
+            # fault: a pause would read as a rate drop on every service.
+            load_status = stack.load.status()
+            routes = {}
+            for path in STACK_ROUTES:
+                status, body, secs = http_call(base, "GET", path)
+                routes[path] = dict(status=status, bytes=len(body), ms=secs * 1e3)
+            browser = {"resourceSpans": [{
+                "resource": {"attributes": [{"key": "service.name", "value": {"stringValue": "browser"}}]},
+                "scopeSpans": [{"spans": [{"traceId": "cd" * 16, "name": "documentFetch",
+                                           "startTimeUnixNano": 0, "endTimeUnixNano": 5_000_000}]}]}]}
+            status, body, secs = http_call(base, "POST", "/otlp-http/v1/traces", browser)
+            routes["/otlp-http/v1/traces"] = dict(status=status, bytes=len(body), ms=secs * 1e3)
+            bad = {p: r["status"] for p, r in routes.items() if r["status"] != 200}
+            check(not bad, f"stack http: routes answered {bad}")
+            grpc_rec = grpc_leg(stack, base) if grpc_on else "not run: grpc does not import here"
+            status, body, _ = http_call(base, "GET", "/metrics")
+            check(status == 200 and flag_count(body.decode(), "payment") == 0.0,
+                  "stack http: payment flagged before the fault")
+            t_flip = time.perf_counter()
+            flip_t = time.monotonic() - gw._t0  # the clock the gateway pumps on
+            status, _, _ = http_call(base, "POST", "/feature/api/write-to-file", {"data": PAYMENT_FAILURE})
+            check(status == 200, f"stack http: the flag editor answered {status}")
+            flagged = False
+            while not flagged:
+                check(time.perf_counter() - t_flip < STACK_FLAG_S, f"stack http: payment not flagged in {STACK_FLAG_S} s")
+                time.sleep(0.1)
+                status, body, _ = http_call(base, "GET", "/metrics")
+                flagged = flag_count(body.decode(), "payment") >= 1.0
+            ttd_s = time.perf_counter() - t_flip
+            stop.set()
+            for th in clients:
+                th.join(timeout=60)
+            stack.close()
+            closed = True
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        trace_exit_s = time.perf_counter() - t0 - wall
+    finally:
+        if not closed:
+            stack.close()
+    t_events = time.perf_counter()
+    steps = pipe.stats.batches
+    k1_events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "sketch_kernel" in e.name)
+    check(launches["fused_update"] == steps == k1_events and launches["cms_hist"] == launches["sketch_delta"] == 0,
+          f"stack http: launches {launches}, {k1_events} sketch kernels in the trace, for {steps} steps")
+    busy = device_activity(prof)
+    events_s = time.perf_counter() - t_events
+    check(busy["ops"] > 0, "stack http: the trace saw no device activity")
+    # No batch dispatched before the flip flags payment (a report's time
+    # is its batch's, on the gateway's clock).
+    before = [(t, f) for t, f in events if "payment" in f and t < flip_t]
+    check(not before, f"stack http: payment flagged before the flip: {before[:3]}")
+    # The CPU replay runs beside the process legs; phase_stack joins it.
+    t_replay = time.perf_counter()
+    replay = Background(lambda: (stack_twin(stack, calls, events, "stack http"), time.perf_counter() - t_replay))
+    # The clients' answers before the flip: requests/s answered 200 and
+    # the request latency under the load.
+    quiet = [(status, x) for t, status, _, x in answers if t < t_flip]
+    ok = [status for status, _ in quiet if status == 200]
+    secs = sorted(x for _, x in quiet)
+    fault_checkouts = sum(1 for t, _, _, _ in answers if t >= t_flip) // 2
+    rec = dict(
+        load_s=t_flip - t0, requests=len(quiet), answered_200=len(ok), requests_per_s_200=len(ok) / (t_flip - t0),
+        request_p50_ms=float(np.percentile(secs, 50)) * 1e3, request_p99_ms=float(np.percentile(secs, 99)) * 1e3,
+        loadgen=load_status, routes=routes, grpc=grpc_rec, fault_checkouts=fault_checkouts, ttd_s=ttd_s, wall_s=wall,
+        spans=pipe.stats.spans, spans_per_s=pipe.stats.spans / wall, steps=steps, replay=replay,
+        build_s=build_s, trace_exit_s=trace_exit_s, events_s=events_s,
+        launches=launches["fused_update"], all_launches=launches, trace_sketch_kernels=k1_events,
+        lag_p99_ms=float(np.percentile(pipe.stats.lag_ms, 99)) if pipe.stats.lag_ms else None,
+        busy_share=busy["union_ms"] / (wall * 1e3), device_ms=busy["union_ms"], device_ops=busy["ops"],
+        flagged=sorted({s for _, f in events for s in f}),
+    )
+    print(f"stack_http: {len(ok)} of {len(quiet)} client requests answered 200 in {rec['load_s']:.3f} s "
+          f"({rec['requests_per_s_200']:.1f}/s, p50 {rec['request_p50_ms']:.2f} ms, p99 {rec['request_p99_ms']:.2f} ms) "
+          f"beside {STACK_USERS} load users ({load_status}); routes {{{', '.join(f'{p}: {r['status']}' for p, r in routes.items())}}}; "
+          f"payment flagged {ttd_s:.3f} s after the flip ({fault_checkouts} client checkouts); {rec['spans']} spans in {wall:.3f} s "
+          f"(traced, {rec['spans_per_s']:.1f} spans/s), {steps} steps = {launches['fused_update']} fused_update launches "
+          f"= {k1_events} sketch kernels in the trace, card busy {rec['busy_share']:.4%} ({busy['ops']} device ops), "
+          f"lag p99 {rec['lag_p99_ms']} ms; build {build_s:.3f} s, trace stop {trace_exit_s:.3f} s, trace read "
+          f"{events_s:.3f} s ({gpu_line()})")
+    return rec
+
+
+STACK_ENV = ("KAFKA_PORT", "SHOP_PORT", "SHOP_USERS", "SHOP_MINIMAL", "SHOP_GRPC_PORT",
+             "OTEL_EXPORTER_OTLP_ENDPOINT", "LOCUST_BROWSER_TRAFFIC_ENABLED")
+
+
+def child_env(daemon: str | None = None, **knobs) -> dict:
+    """A child's environment, with this checkout on ``PYTHONPATH`` and
+    none of the knobs ``serve_shop`` and ``serve_kafka`` read. A daemon's
+    is ``daemon_env(daemon)``'s (every ``ANOMALY_*`` knob unset,
+    ephemeral ports, its own checkpoint, history and flagd file) without
+    the front door and the gRPC receiver; then ``knobs``."""
+    with daemon_env(daemon or "stack", ANOMALY_FRONTDOOR_ENABLE=0, ANOMALY_OTLP_GRPC_PORT=-1, **knobs):
+        env = {k: v for k, v in os.environ.items() if k not in STACK_ENV}
+    if daemon is None:
+        env = {k: v for k, v in env.items() if not k.startswith("ANOMALY_") and k not in DAEMON_ENV}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONUNBUFFERED"] = "1"
+    return env
+
+
+class Child:
+    """A process of the stack: its output read on a thread, its first
+    line matching a pattern awaited, killed on ``stop``."""
+
+    def __init__(self, name: str, argv: list[str], env: dict):
+        import threading
+
+        self.name = name
+        self.lines: list[str] = []
+        self.proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=lambda: self.lines.extend(self.proc.stdout), daemon=True)
+        self._reader.start()
+
+    def wait_line(self, pattern: str, timeout_s: float = 120.0) -> str:
+        import re
+
+        deadline = time.perf_counter() + timeout_s
+        while True:
+            for line in list(self.lines):
+                if re.search(pattern, line):
+                    return line
+            check(self.proc.poll() is None, f"{self.name} exited rc={self.proc.returncode}: {self.lines[-20:]}")
+            check(time.perf_counter() < deadline, f"{self.name}: no line matching {pattern!r}: {self.lines[-20:]}")
+            time.sleep(0.05)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self._reader.join(timeout=10)
+
+
+def device_args(device) -> list[str]:
+    """The card is every entry point's default; only another device is named."""
+    return [] if device.type == "cuda" else ["--device", device.type]
+
+
+def scrape(url: str) -> str:
+    status, body, _ = http_call(url, "GET", "/metrics")
+    check(status == 200, f"{url}/metrics answered {status}")
+    return body.decode()
+
+
+def stack_compose(device) -> dict:
+    """The compose topology: the port's daemon as a process on ``device``
+    at its default geometry (the reference's topology test's batch,
+    cadence and warm-up), ``serve_shop --otlp-endpoint`` as a process
+    exporting the three signals to it; ``paymentFailure`` through the
+    shop's flag editor must flag ``payment`` on the daemon's ``/metrics``,
+    and the shop's error logs must be stored there."""
+    import re
+
+    children: list[Child] = []
+    t0 = time.perf_counter()
+    try:
+        daemon = Child("compose daemon", ["-m", "opentelemetry_demo_tpu_torch", *device_args(device)],
+                       child_env("compose", ANOMALY_BATCH=128, ANOMALY_PUMP_INTERVAL_S=0.05,
+                                 ANOMALY_WARMUP_BATCHES=8))
+        children.append(daemon)
+        line = daemon.wait_line(r"anomaly-detector: otlp-http :\d+")
+        otlp = int(re.search(r"otlp-http :(\d+)", line).group(1))
+        metrics = f"http://127.0.0.1:{re.search(r'metrics :(\d+)', line).group(1)}"
+        shop = Child("compose shop", ["-m", "opentelemetry_demo_tpu_torch.serve_shop", "--host", "127.0.0.1",
+                                      "--port", "0", "--users", "0", "--otlp-endpoint", f"http://127.0.0.1:{otlp}"],
+                     child_env())
+        children.append(shop)
+        base = f"http://127.0.0.1:{re.search(r'http://[^:]+:(\d+)', shop.wait_line(r'shop gateway on http://')).group(1)}"
+        boot_s = time.perf_counter() - t0
+        # Warm past the CUSUM warm-up several times over: a fault that
+        # lands inside it is learned as the baseline and never flags.
+        i = 0
+        while True:
+            text = scrape(metrics)
+            if ((metric_value(text, "app_anomaly_spans_processed_total") or 0.0) >= 100
+                    and (metric_value(text, "app_anomaly_batches_dispatched") or 0.0) >= STACK_WARM_BATCHES):
+                break
+            check(time.perf_counter() - t0 < 120.0, f"stack compose: the daemon did not warm: {i} checkouts")
+            http_checkout(base, f"warm-{i}")
+            i += 1
+            time.sleep(0.07)
+        check(flag_count(scrape(metrics), "payment") == 0.0, "stack compose: payment flagged before the fault")
+        status, _, _ = http_call(base, "POST", "/feature/api/write-to-file", {"data": PAYMENT_FAILURE})
+        check(status == 200, f"stack compose: the flag editor answered {status}")
+        t_flip = time.perf_counter()
+        j = 0
+        while True:
+            text = scrape(metrics)
+            if flag_count(text, "payment") >= 1.0 and (metric_value(text, "app_anomaly_log_docs_stored") or 0.0) >= 1:
+                break
+            check(time.perf_counter() - t_flip < STACK_FLAG_S,
+                  f"stack compose: payment {flag_count(text, 'payment')}, logs stored "
+                  f"{metric_value(text, 'app_anomaly_log_docs_stored')} after {STACK_FLAG_S} s")
+            for _ in range(4):
+                http_checkout(base, f"fault-{j}")
+                j += 1
+            time.sleep(0.07)
+        ttd_s = time.perf_counter() - t_flip
+        logs = metric_value(text, "app_anomaly_log_docs_stored")
+        check(not any("warm-up failed" in ln for ln in daemon.lines), "stack compose: the daemon's warm-up failed")
+    finally:
+        for child in children:
+            child.stop()
+    rec = dict(boot_s=boot_s, warm_checkouts=i, fault_checkouts=j, ttd_s=ttd_s, logs_stored=logs,
+               announce=line.strip(), wall_s=time.perf_counter() - t0)
+    print(f"stack_compose: daemon ({line.strip()}) and serve_shop --otlp-endpoint up in {boot_s:.3f} s; payment "
+          f"flagged on the daemon's /metrics {ttd_s:.3f} s after the flip ({j} checkouts), {logs:g} log docs stored "
+          f"({gpu_line()})")
+    return rec
+
+
+def kafka_topology(device) -> dict:
+    """Start the three-process topology: ``serve_kafka`` (awaited: the
+    others need its address), then the daemon with ``KAFKA_ADDR`` (the
+    reference's topology test's batch, cadence and warm-ups) and
+    ``serve_shop --kafka``, not awaited, so they boot beside the compose
+    leg."""
+    import re
+
+    topo = dict(t0=time.perf_counter(), children=[])
+    broker = Child("broker", ["-m", "opentelemetry_demo_tpu_torch.serve_kafka", "--host", "127.0.0.1",
+                              "--port", "0"], child_env())
+    topo["children"].append(broker)
+    topo["bootstrap"] = re.search(r"kafka broker on (\S+)", broker.wait_line(r"kafka broker on \S+:\d+")).group(1)
+    topo["daemon"] = Child("kafka daemon", ["-m", "opentelemetry_demo_tpu_torch", *device_args(device)],
+                           child_env("kafka", KAFKA_ADDR=topo["bootstrap"], ANOMALY_BATCH=128,
+                                     ANOMALY_PUMP_INTERVAL_S=0.05, ANOMALY_WARMUP_BATCHES=6,
+                                     ANOMALY_Z_WARMUP_BATCHES=40))
+    topo["children"].append(topo["daemon"])
+    topo["shop"] = Child("kafka shop", ["-m", "opentelemetry_demo_tpu_torch.serve_shop", "--host", "127.0.0.1",
+                                        "--port", "0", "--users", "0", "--kafka", topo["bootstrap"],
+                                        *device_args(device)], child_env())
+    topo["children"].append(topo["shop"])
+    return topo
+
+
+def stack_kafka(topo) -> dict:
+    """The three-process topology of ``kafka_topology``:
+    ``kafkaQueueProblems`` through the shop's flag editor must flag
+    ``checkout-orders`` on the daemon's ``/metrics``, and all three
+    consumer groups must have committed."""
+    import re
+
+    from opentelemetry_demo_tpu_torch.runtime.kafka_client import KafkaConsumer
+
+    t0 = time.perf_counter()
+    bootstrap, daemon = topo["bootstrap"], topo["daemon"]
+    line = daemon.wait_line(r"anomaly-detector: otlp-http :\d+")
+    metrics = f"http://127.0.0.1:{re.search(r'metrics :(\d+)', line).group(1)}"
+    base = f"http://127.0.0.1:{re.search(r'http://[^:]+:(\d+)', topo['shop'].wait_line(r'shop gateway on http://')).group(1)}"
+    boot_s = time.perf_counter() - topo["t0"]
+    i = 0
+    while (metric_value(scrape(metrics), "app_anomaly_spans_processed_total") or 0.0) < 55:
+        check(time.perf_counter() - t0 < 150.0, "stack kafka: the daemon never ingested orders off the broker")
+        http_checkout(base, f"warm-{i}")
+        i += 1
+        time.sleep(0.15)
+    check(flag_count(scrape(metrics), "checkout-orders") == 0.0, "stack kafka: checkout-orders flagged before the flood")
+    status, _, _ = http_call(base, "POST", "/feature/api/write-to-file", {"data": KAFKA_QUEUE_PROBLEMS})
+    check(status == 200, f"stack kafka: the flag editor answered {status}")
+    t_flip = time.perf_counter()
+    j = 0
+    while flag_count(scrape(metrics), "checkout-orders") < 1.0:
+        check(time.perf_counter() - t_flip < STACK_FLAG_S, f"stack kafka: checkout-orders not flagged in {STACK_FLAG_S} s")
+        http_checkout(base, f"flood-{j}")
+        j += 1
+        time.sleep(0.3)
+    ttd_s = time.perf_counter() - t_flip
+    committed = {}
+    for group in ("accounting", "fraud-detection", "anomaly-detector"):
+        consumer = KafkaConsumer(bootstrap, group, "orders")
+        try:
+            committed[group] = sum(v for v in consumer.committed().values() if v > 0)
+        finally:
+            consumer.close()
+    check(all(v > 0 for v in committed.values()), f"stack kafka: committed offsets {committed}")
+    check(not any("warm-up failed" in ln for ln in daemon.lines), "stack kafka: the daemon's warm-up failed")
+    rec = dict(boot_s=boot_s, warm_checkouts=i, flood_checkouts=j, ttd_s=ttd_s, committed=committed,
+               announce=line.strip(), wall_s=time.perf_counter() - t0)
+    print(f"stack_kafka: serve_kafka, serve_shop --kafka and the daemon up {boot_s:.3f} s after their start (booted "
+          f"beside the compose leg); checkout-orders flagged {ttd_s:.3f} s after the flip ({j} checkouts); "
+          f"committed {committed} ({gpu_line()})")
+    return rec
+
+
+def stack_spine(device) -> dict:
+    """spinebench on the card as ``bench.py`` calls it: ``measure_e2e``
+    at its own geometry (S=16, p=8, CMS 1024, B=2048; 3 s of payloads
+    offered to the decode pool, spine and harvester, then drained) with
+    its ``measure_kernel_ref`` at the same width. Measurements, no gate."""
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+    from opentelemetry_demo_tpu_torch.runtime import spinebench
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    rec = spinebench.measure_e2e(seconds=3.0, device=str(device))
+    check(rec is not None, "stack spine: spinebench found no native decoder")
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["all_launches"] = dict(_kernels.LAUNCHES)
+    print(f"stack_spine: e2e {rec['spans_per_sec']:.1f} spans/s ({rec['spans']} spans, {rec['batches']} batches, "
+          f"overlap {rec['overlap_ratio']}, phase share {rec['phase_share']}), kernel ref "
+          f"{rec['kernel_spans_per_sec']} spans/s at B=2048; {rec['all_launches']['fused_update']} fused_update "
+          f"launches ({rec['wall_s']:.1f} s) ({gpu_line()})")
+    return rec
+
+
+def phase_stack(device, results):
+    """The standalone stack as its users start it: the in-process stack
+    of ``serve_shop`` with its HTTP and gRPC edges on the card, the
+    compose and Kafka topologies as processes, and spinebench."""
+    t0 = time.perf_counter()
+    out = {"http": stack_http(device)}
+    out["grpc"] = out["http"]["grpc"]
+    if isinstance(out["grpc"], str):
+        print(f"stack_grpc: {out['grpc']}")
+    topo = kafka_topology(device)
+    try:
+        out["compose"] = stack_compose(device)
+        out["kafka"] = stack_kafka(topo)
+    finally:
+        for child in reversed(topo["children"]):
+            child.stop()
+    t_join = time.perf_counter()
+    http = out["http"]
+    http["replayed_steps"], http["replay_s"] = http.pop("replay").result()
+    print(f"stack_http replay: card = CPU over {http['replayed_steps']} steps, reports and state "
+          f"({http['replay_s']:.3f} s beside the process legs, {time.perf_counter() - t_join:.3f} s waited)")
+    out["spine"] = stack_spine(device)
+    shutil.rmtree(DAEMON_DIR, ignore_errors=True)
+    for name in ("fused_update", "cms_hist", "sketch_delta"):
+        results[name]["launches_stack"] = {leg: out[leg]["all_launches"][name] for leg in ("http", "spine")}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"stack phase: {out['wall_s']:.1f} s ({gpu_line()})")
     return out
 
 
@@ -5202,6 +5818,7 @@ def main() -> int:
     fleet = phase_fleet(device, results)
     daemon = phase_daemon(device, results)
     shop = phase_shop(device, results)
+    stack = phase_stack(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -5230,13 +5847,13 @@ def main() -> int:
             launches_orders=r.get("launches_orders"), launches_read=r.get("launches_read"),
             launches_history=r.get("launches_history"), launches_quality=r.get("launches_quality"),
             launches_fleet=r.get("launches_fleet"), launches_daemon=r.get("launches_daemon"),
-            launches_shop=r.get("launches_shop"),
+            launches_shop=r.get("launches_shop"), launches_stack=r.get("launches_stack"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
          "doors": doors, "orders": orders, "read_side": read_side, "time_travel": time_travel,
-         "fleet": fleet, "daemon": daemon, "shop": shop, "state": state, "mesh": mesh,
+         "fleet": fleet, "daemon": daemon, "shop": shop, "stack": stack, "state": state, "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

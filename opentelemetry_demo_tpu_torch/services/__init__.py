@@ -11,12 +11,12 @@ Failure injection parity (SURVEY.md §5): every reference flagd flag has
 an equivalent here and flips real behaviour the detector must catch.
 
 The shop stays on the host; the detector it feeds runs on the card
-(``DetectorPipeline`` on ``cuda`` unless a caller names the CPU). The
-HTTP gateway (``ShopGateway``, with the web UI and the mobile API), the
-gRPC edge and the HTTP load driver are not here yet: they come with the
-next slice of the port.
+(``DetectorPipeline`` on ``cuda`` unless a caller names the CPU). Its
+edges are here too: the HTTP gateway (``ShopGateway``, with the web UI
+and the mobile API), the gRPC edge and the HTTP load driver.
 """
 
+from .gateway import ShopGateway
 from .shop import Shop, ShopConfig
 
-__all__ = ["Shop", "ShopConfig"]
+__all__ = ["Shop", "ShopConfig", "ShopGateway"]

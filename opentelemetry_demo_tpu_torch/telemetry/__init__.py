@@ -8,8 +8,9 @@ connector, exporter fan-out) → :class:`TraceStore` (Jaeger analogue),
 :class:`MetricTSDB` + :class:`Scraper` (Prometheus analogue),
 :class:`LogStore` (OpenSearch analogue). The log store is also where the
 detector's OTLP logs leg lands, and the metric registry with its
-Prometheus exporter is where the detector's verdicts surface. The
-provisioned dashboards (the Grafana analogue) come with the next slice.
+Prometheus exporter is where the detector's verdicts surface; the
+provisioned dashboards (the Grafana analogue, ``dashboards``) are
+evaluated straight against the stores and served by ``obsui``.
 """
 
 from .tracer import Baggage, Tracer, TraceContext
@@ -20,6 +21,7 @@ from .tsdb import MetricTSDB, Scraper
 from .logstore import LogDoc, LogStore, normalize_severity
 from .hostmetrics import HostMetricsReceiver
 from .receivers import HttpCheckReceiver, StoreStatsReceiver
+from . import dashboards
 
 __all__ = [
     "Baggage",
@@ -39,4 +41,5 @@ __all__ = [
     "HttpCheckReceiver",
     "StoreStatsReceiver",
     "normalize_severity",
+    "dashboards",
 ]

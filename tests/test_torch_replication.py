@@ -216,6 +216,11 @@ def test_a_mirror_across_packages_equals_its_source(primary_pkg, standby_pkg):
             t += 0.25
             time.sleep(0.01)
         assert _wait_equal(standby, lambda: rig.snapshot()[0])
+        # The rig bumps its offsets after the step, so a frame can carry
+        # the final state with the previous offsets: wait for the next.
+        deadline = time.monotonic() + 20.0
+        while standby.snapshot()[1].get("offsets") != rig.snapshot()[1]["offsets"] and time.monotonic() < deadline:
+            time.sleep(0.05)
         arrays, meta = standby.snapshot()
         src_arrays, src_meta = rig.snapshot()
         assert meta["offsets"] == {"0": 12 * 256} and meta["clock_t_prev"] == src_meta["clock_t_prev"]

@@ -4,7 +4,7 @@ back-off.
 
 The cases of ``tests/test_telemetry_backend.py`` that need no gateway
 (the dashboards, the Jaeger UI and the HTTP check against a live gateway
-come with the next slice), each run on the port and, where it feeds a
+are in ``tests/test_torch_telemetry_ui.py``), each run on the port and, where it feeds a
 store, on the reference with the same input: the trace-store queries,
 the TSDB series and the log documents must be equal. Two shops, one per
 package, run the same seeded load (``busy_pair``; the tracers' trace-id
