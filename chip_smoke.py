@@ -188,6 +188,17 @@ with ``KAFKA_ADDR`` as three processes, ``kafkaQueueProblems`` flagging
 ``stack_spine``: spinebench's ``measure_e2e`` with its kernel
 reference. The kernel line gains ``launches_stack``.
 
+The bench line follows (``phase_bench``): the fused-update kernel at the
+bench's width, B = 2,097,152, in two detector steps from one seeded
+state against its plain version, and the CMS-histogram kernel at the
+matrix's widest composed call, 4 × 524,288 keys, exactly against its
+plain version, both timed; then ``opentelemetry_demo_tpu_torch.bench``'s
+``main`` on the card at that width with the sketch-impl matrix (the legs
+other phases drive on the card at 0): one JSON line with the reference's
+keys and this card's name and power limit, a finite throughput, eight
+finite matrix entries, ``legs_skipped`` naming the knobs at 0. The
+kernel line gains ``launches_bench``.
+
 The mesh path follows (``parallel.make_sharded_step``, whose delta runs
 the sketch-delta kernel on every rank): a one-rank NCCL world against the
 single-device step at widths 2048 and 65536, then a four-rank gloo world
@@ -2931,7 +2942,11 @@ def sweep_order(device, n_services=20, n_evict=4):
 def tracer_cost(device, sink, width=2048, n_warm=40, n_fault=4):
     """The native B=2048 leg (spine + async harvester) with the tracer
     off, at sample 0.01 and at 1.0, in turns (off, 0.01, 1.0, 1.0, 0.01,
-    off); each setting's second run is kept."""
+    off); each setting's second run is kept. The async harvester drops a
+    report still copying while a newer one waits, and a dropped report's
+    trace is never finished, in the reference as in the port
+    (``tests/test_torch_selftrace.py``): each run exports exactly the
+    traces of its harvested, sampled batches."""
     from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
     from opentelemetry_demo_tpu_torch.runtime import native, selftrace
     from opentelemetry_demo_tpu_torch.runtime.otlp import MONITORED_ATTR_KEYS
@@ -2948,8 +2963,10 @@ def tracer_cost(device, sink, width=2048, n_warm=40, n_fault=4):
         if sample is not None:
             poster = make_traces_poster(f"http://127.0.0.1:{sink.port}", queue_max=256)
             tracer = selftrace.SelfTracer(submit=poster.submit, sample=sample)
+        harvested = []
         pipe = DetectorPipeline(AnomalyDetector(DetectorConfig(), device=device), batch_size=width,
-                                spine_ring=2, harvest_async=True, selftrace=tracer)
+                                spine_ring=2, harvest_async=True, selftrace=tracer,
+                                on_report=lambda t, _r, _f: harvested.append(round(t / DT_S)))
         try:
             t0 = time.perf_counter()
             for k in range(n):
@@ -2962,12 +2979,20 @@ def tracer_cost(device, sink, width=2048, n_warm=40, n_fault=4):
             wall = time.perf_counter() - t0
         finally:
             pipe.close()
-        out = dict(spans_per_s=n * width / wall, traces=0)
+        out = dict(spans_per_s=n * width / wall, traces=0, reports_skipped=pipe.stats.reports_skipped)
+        check(len(harvested) + pipe.stats.reports_skipped == n,
+              f"{len(harvested)} reports harvested and {pipe.stats.reports_skipped} skipped of {n}")
         if poster is not None:
             check(poster.flush(30.0) and poster.errors == 0, f"trace poster errors {poster.errors}")
             out["traces"] = tracer.traces_exported
             poster.close()
-            sink.take("/v1/traces")
+            seqs = sorted(
+                int(sp["attrs"]["batch.seq"]) for body in sink.take("/v1/traces")
+                for sp in selftrace.decode_selftrace_request(body) if sp["name"] == selftrace.SPAN_BATCH
+            )
+            want = sorted(k for k in harvested if selftrace.sampled(k, sample))
+            check(out["traces"] == len(seqs) and seqs == want,
+                  f"traces of batches {seqs} at sample {sample}, harvested and sampled {want}")
         return out
 
     order = (None, 0.01, 1.0, 1.0, 0.01, None)
@@ -2976,12 +3001,11 @@ def tracer_cost(device, sink, width=2048, n_warm=40, n_fault=4):
     for s, r in runs:
         kept.setdefault(str(s), []).append(r)
     rec = {k: dict(first=v[0], second=v[1]) for k, v in kept.items()}
-    check(rec["1.0"]["second"]["traces"] == n, f"{rec['1.0']['second']['traces']} traces at sample 1.0")
-    check(rec["0.01"]["second"]["traces"] == sum(selftrace.sampled(i, 0.01) for i in range(n)),
-          "the traces at 0.01 are not the sampled batches")
     print(f"tracer cost, native B={width} (spine + async), in turns off/0.01/1.0/1.0/0.01/off: spans/s "
           + "; ".join(f"{k}: {v['first']['spans_per_s']:.0f} then {v['second']['spans_per_s']:.0f}"
-                      for k, v in rec.items()) + f" ({gpu_line()})")
+                      for k, v in rec.items()) + "; reports skipped "
+          + ", ".join(f"{k}: {v['first']['reports_skipped']}/{v['second']['reports_skipped']}" for k, v in rec.items())
+          + f" of {n} ({gpu_line()})")
     return rec
 
 
@@ -5121,6 +5145,200 @@ def phase_stack(device, results):
     return out
 
 
+# -- the bench line -----------------------------------------------------------------
+
+# phase_bench's knobs: the full width (BENCH_BATCH at its default), the
+# matrix, the spine and lag legs shortened; the legs that other phases
+# already drive on the card at 0 (quality, mitigation, the fleet drills,
+# the front door and its soaks in phase_quality, phase_mitigation,
+# phase_fleet and phase_daemon; spinebench's tracer and provenance A/B
+# beside stack_spine and tracer_cost: each A/B's four spinebench runs
+# take 70-95 s on an H100, past the phase's 150 s).
+BENCH_PHASE_KNOBS = {
+    "BENCH_MATRIX": "1", "BENCH_SPINE_SECONDS": "3", "BENCH_LAG_SECONDS": "6",
+    "BENCH_QUALITY": "0", "BENCH_MITIG": "0", "BENCH_REPL": "0", "BENCH_FLEET": "0",
+    "BENCH_AUTOSCALE": "0", "BENCH_FRONTDOOR": "0", "BENCH_SELFTRACE": "0", "BENCH_EXPLAIN": "0",
+}
+
+
+def seeded_state(rng, cfg, device):
+    """A full detector state from ``rng``: banks with history in both
+    halves, heads past their warm-ups, step 7."""
+    from opentelemetry_demo_tpu_torch.models import detector_init
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState
+
+    hll_bank, cms_bank, heads = random_state(rng, cfg, device)
+    state = detector_init(cfg, device)._asdict()
+    state.update(hll_bank=hll_bank, cms_bank=cms_bank, **heads, step_idx=torch.tensor(7, dtype=torch.int32,
+                                                                                    device=device))
+    for name in ("span_total", "card_mean", "card_var", "obs_windows"):
+        shape = tuple(state[name].shape)
+        state[name] = torch.from_numpy(rng.gamma(4.0, 50.0, shape).astype(np.float32)).to(device)
+    return DetectorState(**state)
+
+
+def bench_k1(cfg, device, pool) -> float:
+    """Two detector steps from one seeded state on the bench's batches,
+    the fused-update kernel (``sketch_impl="pallas"``) against its plain
+    version (``"interpret"``): integer state exact, float state and
+    reports within RTOL/ATOL, flags identical, after each step."""
+    from opentelemetry_demo_tpu_torch.models import detector_step
+    from opentelemetry_demo_tpu_torch.models.detector import DetectorState
+
+    base = seeded_state(np.random.default_rng(12), cfg, device)
+    runs = {}
+    for impl in ("pallas", "interpret"):
+        c = cfg._replace(sketch_impl=impl)
+        st = DetectorState(*(t.clone() for t in base))
+        reports = []
+        for batch, rotate in zip(pool, ((False, False, False), (True, False, False))):
+            st, rep = detector_step(c, st, *batch, torch.tensor(DT_S, device=device),
+                                    torch.tensor(rotate, device=device))
+            reports.append([t.clone() for t in rep])
+            runs.setdefault(impl, []).append((DetectorState(*(t.clone() for t in st)), reports[-1]))
+        torch.cuda.synchronize()
+    worst = 0.0
+    b = pool[0][0].shape[0]
+    for i, ((sk, rk), (sp, rp)) in enumerate(zip(runs["pallas"], runs["interpret"])):
+        for name, a, w in zip(DetectorState._fields, sk, sp):
+            if a.dtype in (torch.int32, torch.int64):
+                check(torch.equal(a, w), f"B={b} step {i}: {name} differs from the plain path")
+            else:
+                check(close(a, w), f"B={b} step {i}: {name} differs from the plain path: {max_err(a, w)}")
+                worst = max(worst, max_err(a, w))
+        for j, (a, w) in enumerate(zip(rk, rp)):
+            if a.dtype == torch.bool:
+                check(torch.equal(a, w), f"B={b} step {i}: report field {j} (flags) differs")
+            else:
+                check(close(a, w), f"B={b} step {i}: report field {j} differs: {max_err(a, w)}")
+                worst = max(worst, max_err(a, w))
+    print(f"fused_update at the bench's width B={b}: two detector steps from one seeded state, integer state "
+          f"exact, floats max abs err {worst:.3g}, flags identical")
+    return worst
+
+
+def bench_kernel_times(cfg, device, pool_k1, pool_k2) -> dict:
+    """K1 at the bench's width and K2 at the matrix's widest composed call,
+    each in turns with its plain version, on the bench's own batches."""
+    from opentelemetry_demo_tpu_torch.ops import cms, fused
+
+    svc, lat, err, t_hi, t_lo, a_hi, a_lo, valid = pool_k1[0]
+    lanes = dict(svc=svc, log_lat=torch.log1p(lat), is_error=err, trace_hi=t_hi, trace_lo=t_lo,
+                 cidx=cms.cms_indices(a_hi, a_lo, cfg.cms_depth, cfg.cms_width), valid=valid)
+    hll_bank, cms_bank, heads = random_state(np.random.default_rng(13), cfg, device)
+    kw = dict(num_services=cfg.num_services, hll_p=cfg.hll_p, heads=fused.HeadState(**heads),
+              dt=torch.tensor(DT_S, device=device), step_pos=torch.tensor(7, dtype=torch.int32, device=device),
+              statics=head_kw(cfg))
+    args = (hll_bank[:, 0], cms_bank[:, 0], *k1_args(lanes))
+    b = svc.shape[0]
+    out = {"fused_update": dict(
+        time_kernel(lambda: fused.fused_update_plain(*args, **kw), lambda: fused.fused_update(*args, **kw), 4, 50),
+        bound_ms=fused_bound_bytes(lanes, cfg) / HBM_BYTES_PER_S * 1e3, shape=f"B={b}",
+    )}
+
+    _svc, _lat, _err, _hi, _lo, a_hi, a_lo, valid = pool_k2[0]
+    idx, width = cms.cms_indices(a_hi, a_lo, cfg.cms_depth, cfg.cms_width), cfg.cms_width
+    for _ in range(2):
+        check(torch.equal(cms.cms_count(idx, valid, width), cms.cms_count_plain(idx, valid, width)),
+              f"cms_count differs from its plain version at {idx.shape[0]} x {idx.shape[1]}")
+    print(f"cms_hist at the matrix's widest composed call: cms_count {idx.shape[0]} x {idx.shape[1]} keys into "
+          f"{idx.shape[0] * width} bins exact, twice")
+    n_bins = idx.shape[0] * width
+    keys = flat_keys(idx, valid, width)
+    library = lambda: torch.bincount(keys, minlength=n_bins + 1)[:n_bins]  # noqa: E731
+    k2 = dict(
+        time_kernel(lambda: cms.cms_count_plain(idx, valid, width), lambda: cms.cms_count(idx, valid, width), 10, 50),
+        bound_ms=(idx.shape[1] * (4 * idx.shape[0] + 1) + n_bins * 4) / HBM_BYTES_PER_S * 1e3,
+        shape=f"cms_count B={idx.shape[1]} D={idx.shape[0]}",
+        library_breakdown=profile_ops(library),
+    )
+    k2["library_ms"] = sum(
+        v["ms"] for k, v in k2["library_breakdown"].items() if not k.startswith(("Memcpy", "Memset"))
+    ) or None
+    out["cms_hist"] = k2
+    for name, t in out.items():
+        (p1, _), (k1_, kw_), (k2_, _), (p2, _) = t["turns"]
+        print(f"time {name} {t['shape']} (bench): device kernel {k1_:.5f} / {k2_:.5f} ms, plain {p1:.5f} / "
+              f"{p2:.5f} ms; wall kernel {kw_:.5f} ms; bound {t['bound_ms']:.6f} ms; library "
+              f"{t.get('library_ms')} ms")
+        print(f"  device operations per call ({name} {t['shape']}): {show_breakdown(t['breakdown'])}")
+    return out
+
+
+def phase_bench(device, results):
+    """The port's bench line as its users run it, ``bench.main`` on the
+    card at its full width (``BENCH_BATCH`` = 2,097,152) with the
+    sketch-impl matrix, at ``BENCH_PHASE_KNOBS``. Before it, the two
+    kernels at the bench's widths against their plain versions: K1 in two
+    detector steps at B = 2,097,152, K2 at 4 × 524,288 keys (the matrix's
+    ``xla@524288``); both timed. Gates: exactly one JSON line with the
+    reference's first keys and this card in ``device``; a finite
+    throughput; eight finite matrix entries; ``legs_skipped`` = the knobs
+    at 0; both kernels launched on the bench's path."""
+    import io
+
+    from opentelemetry_demo_tpu_torch import bench
+    from opentelemetry_demo_tpu_torch.models import DetectorConfig
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    cfg = DetectorConfig()
+    width = bench.BENCH_KNOBS["BENCH_BATCH"][1]
+    rng = np.random.default_rng(11)
+    pool_k1 = bench.make_batch_pool(cfg, width, 2, rng, device)
+    pool_k2 = bench.make_batch_pool(cfg, bench.MATRIX_BATCHES[-1], 1, rng, device)
+    worst = bench_k1(cfg, device, pool_k1)
+    results["fused_update"]["max_abs_err"] = max(results["fused_update"]["max_abs_err"], worst)
+    times = bench_kernel_times(cfg, device, pool_k1, pool_k2)
+    del pool_k1, pool_k2
+    torch.cuda.empty_cache()
+    t_checks = time.perf_counter() - t0
+
+    saved = {k: os.environ.get(k) for k in bench.BENCH_KNOBS}
+    for k in bench.BENCH_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(BENCH_PHASE_KNOBS)
+    out = io.StringIO()
+    try:
+        _kernels.reset_launches()
+        t_main = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            line = bench.main(["--device", "cuda"])
+        t_main = time.perf_counter() - t_main
+        launches = dict(_kernels.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    printed = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+    check(len(printed) == 1, f"the bench printed {len(printed)} lines, not one JSON line")
+    check(json.loads(printed[0]) == json.loads(json.dumps(line)), "the bench's line is not what main returned")
+    check(list(line)[:4] == ["metric", "value", "unit", "vs_baseline"], f"bench line starts {list(line)[:4]}")
+    card_name, card_limit = gpu_line().rsplit(",", 1)
+    check(line["device"] == {"name": card_name.strip(), "power_limit_w": float(card_limit.split()[0])},
+          f"bench device {line['device']} is not this card")
+    check(np.isfinite(line["value"]) and line["value"] > 0, f"bench throughput {line['value']}")
+    matrix = line["sketch_impl_matrix"]
+    check(len(matrix) == 8 and all(np.isfinite(v) and v > 0 for v in matrix.values()), f"matrix {matrix}")
+    want_skipped = [k for k in bench.LEG_KNOBS if BENCH_PHASE_KNOBS.get(k) == "0"]
+    check(line["legs_skipped"] == want_skipped, f"legs_skipped {line['legs_skipped']}, knobs at 0 {want_skipped}")
+    for name in ("fused_update", "cms_hist"):
+        check(launches[name] > 0, f"{name} was not launched on the bench's path")
+    for name in ("fused_update", "cms_hist", "sketch_delta"):
+        results[name]["launches_bench"] = launches[name]
+    rec = dict(line=line, kernel_times=times, launches=launches, checks_s=t_checks, main_s=t_main,
+               wall_s=time.perf_counter() - t0)
+    best = max(matrix, key=matrix.get)
+    print(f"bench: {line['value']:.1f} spans/s at B={width} ({line['vs_baseline']}x the 200,000 target), matrix "
+          + ", ".join(f"{k} {v:.0f}" for k, v in matrix.items()) + f" (best {best}); lag p99 "
+          f"{line['lag_p99_ms']} ms (net {line['lag_p99_net_ms']}), fetch RTT {line['fetch_rtt_ms']} ms; "
+          f"launches {launches}; checks {t_checks:.1f} s, main {t_main:.1f} s ({gpu_line()})")
+    print(f"bench phase: {rec['wall_s']:.1f} s")
+    return rec
+
+
 # -- the state that outlives a batch ------------------------------------------------
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -5819,6 +6037,7 @@ def main() -> int:
     daemon = phase_daemon(device, results)
     shop = phase_shop(device, results)
     stack = phase_stack(device, results)
+    bench_rec = phase_bench(device, results)
     state = dict(
         checkpoint=[phase_checkpoint(device, None, cfg.cms_width, results),
                     phase_checkpoint(device, "xla", 16384, results)],
@@ -5848,12 +6067,14 @@ def main() -> int:
             launches_history=r.get("launches_history"), launches_quality=r.get("launches_quality"),
             launches_fleet=r.get("launches_fleet"), launches_daemon=r.get("launches_daemon"),
             launches_shop=r.get("launches_shop"), launches_stack=r.get("launches_stack"),
+            launches_bench=r.get("launches_bench"),
         ))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "repeat": results, "e2e": e2e, "native": native_rec,
          "doors": doors, "orders": orders, "read_side": read_side, "time_travel": time_travel,
-         "fleet": fleet, "daemon": daemon, "shop": shop, "stack": stack, "state": state, "mesh": mesh,
+         "fleet": fleet, "daemon": daemon, "shop": shop, "stack": stack, "bench": bench_rec, "state": state,
+         "mesh": mesh,
          "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

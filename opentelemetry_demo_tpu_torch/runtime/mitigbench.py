@@ -586,18 +586,21 @@ def measure_shadow(seed: int = 0, device=None) -> dict:
     }
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    import argparse
     import json
-    import sys
 
     from ..utils.config import BENCH_KNOBS, env_int
 
-    shadow_only = "--shadow" in sys.argv[1:]
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--shadow", action="store_true", help="the pre-flight leg alone")
+    parser.add_argument("--device", default=None, help="cpu for the plain path (default: the card)")
+    args = parser.parse_args(argv)
     out: dict = {}
-    if not shadow_only:
-        out.update(measure_mitigation())
-    if shadow_only or env_int("BENCH_SHADOW", BENCH_KNOBS["BENCH_SHADOW"][1]):
-        out.update(measure_shadow())
+    if not args.shadow:
+        out.update(measure_mitigation(device=args.device))
+    if args.shadow or env_int("BENCH_SHADOW", BENCH_KNOBS["BENCH_SHADOW"][1]):
+        out.update(measure_shadow(device=args.device))
     print(json.dumps(out))
 
 

@@ -249,10 +249,14 @@ def measure_detection_quality(seed: int = 0, device=None) -> dict:
     return out
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    import argparse
     import json
 
-    print(json.dumps(measure_detection_quality()))
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default=None, help="cpu for the plain path (default: the card)")
+    args = parser.parse_args(argv)
+    print(json.dumps(measure_detection_quality(device=args.device)))
 
 
 if __name__ == "__main__":

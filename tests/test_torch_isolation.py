@@ -108,11 +108,28 @@ SHOP_SLICE = (
 )
 
 
-@pytest.mark.parametrize("name", SHOP_SLICE)
-def test_the_shop_slice_is_held_to_the_rule(name):
-    module = f"opentelemetry_demo_tpu_torch.{name}"
-    assert module in MODULES
+# The bench entry points (the flagship line and the four scripts).
+BENCH_SLICE = (
+    "bench", "scripts", "scripts.bench_lag", "scripts.bench_ingest", "scripts.profile_step",
+    "scripts.profile_chain",
+)
+
+
+def _held_to_the_rule(name: str) -> None:
+    """``name`` is among the modules imported with both packages blocked
+    and among the sources read for an import of either."""
+    assert f"opentelemetry_demo_tpu_torch.{name}" in MODULES
     path = PORT.joinpath(*name.split(".")).with_suffix(".py")
     if not path.exists():
         path = PORT.joinpath(*name.split("."), "__init__.py")
     assert path in SOURCES
+
+
+@pytest.mark.parametrize("name", SHOP_SLICE)
+def test_the_shop_slice_is_held_to_the_rule(name):
+    _held_to_the_rule(name)
+
+
+@pytest.mark.parametrize("name", BENCH_SLICE)
+def test_the_bench_slice_is_held_to_the_rule(name):
+    _held_to_the_rule(name)

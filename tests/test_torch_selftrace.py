@@ -284,6 +284,44 @@ def test_sampled_batches_are_the_reference_batches():
     assert seqs(ours) == seqs(ref) == [str(i) for i in range(30) if selftrace.sampled(i, 0.25)]
 
 
+def test_a_skipped_report_takes_its_trace_in_both_packages():
+    """A report dropped unread (a third in flight under a harvest interval
+    no pump reaches) is never finished, in the reference as in the port:
+    one trace per harvested report, of the same batches."""
+
+    def run(which):
+        bodies: list[bytes] = []
+        if which == "port":
+            tracer = selftrace.SelfTracer(submit=bodies.append, sample=1.0)
+            pipe = DetectorPipeline(
+                tdet.AnomalyDetector(tdet.DetectorConfig(**SMALL), device="cpu"), batch_size=64,
+                harvest_interval_s=3600.0, selftrace=tracer,
+            )
+            cols_t = tensorize.SpanColumns
+        else:
+            tracer = jselftrace.SelfTracer(submit=bodies.append, sample=1.0)
+            pipe = jpipeline.DetectorPipeline(
+                jdet.AnomalyDetector(jdet.DetectorConfig(**SMALL)), batch_size=64,
+                harvest_interval_s=3600.0, selftrace=tracer,
+            )
+            cols_t = jtz.SpanColumns
+        rng = np.random.default_rng(5)
+        try:
+            for i in range(6):
+                pipe.submit_columns(cols_t(**_cols(rng, 64)))
+                pipe.pump(i * 0.25)
+            pipe.drain()
+        finally:
+            pipe.close()
+        seqs = [
+            s["attrs"]["batch.seq"] for b in bodies for s in selftrace.decode_selftrace_request(b)
+            if s["name"] == selftrace.SPAN_BATCH
+        ]
+        return pipe.stats.batches, pipe.stats.reports_skipped, tracer.traces_started, tracer.traces_exported, seqs
+
+    assert run("port") == run("reference") == (6, 4, 6, 2, ["4", "5"])
+
+
 def test_spine_carries_the_trace_to_dispatch():
     """With the spine on, a sampled batch's trace gains the stage and put
     spans and still reaches the harvester."""

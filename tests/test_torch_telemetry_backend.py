@@ -11,7 +11,12 @@ package, run the same seeded load (``busy_pair``; the tracers' trace-id
 source seeded alike); the series that read this process's own CPU,
 memory and clock (the ``hostmetrics`` job, ``container_*`` and
 ``httpcheck_duration_ms``) are left out of the comparisons, and checked
-for shape only. Then the collector cases of
+for shape only. The ``hostmetrics`` receivers of both shops read a
+fixture ``/proc`` tree each (``_fixture_receiver``) whose ``stat``
+advances by the same jiffies on every read: on the live ``/proc`` the
+two shops' first CPU-utilization sample could fall on different scrapes
+(the receiver sets it only once the jiffies moved between two scrapes),
+so the series' shapes differed now and then. Then the collector cases of
 ``tests/test_overload.py::TestCollectorBackpressure``.
 """
 
@@ -28,9 +33,11 @@ import opentelemetry_demo_tpu_torch.telemetry as pt
 from opentelemetry_demo_tpu.runtime.tensorize import SpanRecord as RefSpanRecord
 from opentelemetry_demo_tpu.services.shop import Shop as RefShop
 from opentelemetry_demo_tpu.services.shop import ShopConfig as RefShopConfig
+from opentelemetry_demo_tpu.telemetry import hostmetrics as ref_hostmetrics
 from opentelemetry_demo_tpu.telemetry import tracer as ref_tracer
 from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanRecord
 from opentelemetry_demo_tpu_torch.services.shop import Shop, ShopConfig
+from opentelemetry_demo_tpu_torch.telemetry import hostmetrics as port_hostmetrics
 from opentelemetry_demo_tpu_torch.telemetry import tracer as port_tracer
 from opentelemetry_demo_tpu_torch.telemetry.collector import CALLS_TOTAL, DURATION_MS
 from opentelemetry_demo_tpu_torch.telemetry.tracer import TraceContext
@@ -44,11 +51,54 @@ class _SeededIds:
         return self._rng.randbytes(n)
 
 
-def _shops(seed: int, flag=None, seconds: float = 60.0):
-    """The reference's and the port's shop after the same seeded load."""
+# Jiffies a fixture /proc/stat moves by on each read: (busy, idle).
+_STAT_STEP = (3, 5)
+
+
+def _stat_text(reads: int) -> str:
+    user, idle = 1000 + _STAT_STEP[0] * reads, 8000 + _STAT_STEP[1] * reads
+    return f"cpu  {user} 0 0 {idle} 0 0 0 0 0 0\ncpu0 {user} 0 0 {idle} 0 0 0 0 0 0\n"
+
+
+def _fixture_receiver(cls, root):
+    """``cls`` (a package's ``HostMetricsReceiver``) reading a fixture
+    ``/proc`` tree under ``root`` whose ``stat`` advances by
+    ``_STAT_STEP`` jiffies on each read."""
+    (root / "self").mkdir(parents=True)
+    (root / "net").mkdir()
+    (root / "stat").write_text(_stat_text(0))
+    (root / "meminfo").write_text("MemTotal: 16000000 kB\nMemAvailable: 12000000 kB\n")
+    (root / "loadavg").write_text("0.50 0.40 0.30 1/200 4242\n")
+    (root / "net" / "dev").write_text(
+        "Inter-|   Receive\n face |bytes\n"
+        "    lo: 10 1 0 0 0 0 0 0 10 1 0 0 0 0 0 0\n"
+        "  eth0: 5000 40 0 0 0 0 0 0 3000 30 0 0 0 0 0 0\n"
+    )
+    (root / "self" / "statm").write_text("50000 12000 3000 100 0 9000 0\n")
+
+    class FixtureProc(cls):
+        def __init__(self, registry=None, proc_root=str(root)):
+            super().__init__(registry, proc_root)
+            self._stat_reads = 0
+
+        def _read(self, name):
+            if name == "stat":
+                self._stat_reads += 1
+                (root / "stat").write_text(_stat_text(self._stat_reads))
+            return super()._read(name)
+
+    return FixtureProc
+
+
+def _shops(seed: int, proc_dir, flag=None, seconds: float = 60.0):
+    """The reference's and the port's shop after the same seeded load,
+    their host metrics read from fixture trees under ``proc_dir``."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_tracer, "secrets", _SeededIds(seed))
         mp.setattr(port_tracer, "secrets", _SeededIds(seed))
+        for module, name in ((ref_hostmetrics, "reference"), (port_hostmetrics, "port")):
+            mp.setattr(module, "HostMetricsReceiver",
+                       _fixture_receiver(module.HostMetricsReceiver, proc_dir / name))
         out = []
         for shop in (RefShop(RefShopConfig(users=5, seed=seed)), Shop(ShopConfig(users=5, seed=seed))):
             if flag is not None:
@@ -59,9 +109,9 @@ def _shops(seed: int, flag=None, seconds: float = 60.0):
 
 
 @pytest.fixture(scope="module")
-def busy_pair():
+def busy_pair(tmp_path_factory):
     """60 virtual seconds of the default Locust-profile load, both packages."""
-    return _shops(7)
+    return _shops(7, tmp_path_factory.mktemp("proc"))
 
 
 @pytest.fixture(scope="module")
@@ -153,8 +203,8 @@ def test_trace_store_eviction_cap():
     assert list(store._traces) == list(want._traces)
 
 
-def test_trace_store_error_search():
-    ref, port = _shops(11, flag=("paymentFailure", 1.0), seconds=40.0)
+def test_trace_store_error_search(tmp_path):
+    ref, port = _shops(11, tmp_path, flag=("paymentFailure", 1.0), seconds=40.0)
     errs = port.collector.trace_store.find_traces(service="payment", error_only=True, limit=5)
     assert errs and all(t.has_error for t in errs)
     want = ref.collector.trace_store.find_traces(service="payment", error_only=True, limit=5)

@@ -34,9 +34,9 @@ from tests.test_torch_telemetry_backend import _own_process, _shops
 
 
 @pytest.fixture(scope="module")
-def busy_pair():
+def busy_pair(tmp_path_factory):
     """60 virtual seconds of the default Locust-profile load, both packages."""
-    return _shops(7)
+    return _shops(7, tmp_path_factory.mktemp("proc"))
 
 
 def _both_boards():
