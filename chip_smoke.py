@@ -4,8 +4,8 @@
     python3 chip_smoke.py --nccl-cards 4   # the four-rank mesh leg over NCCL, one card per rank
 
 Builds the hand-written kernels from ``opentelemetry_demo_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main path's shapes
-and on edge cases, checks the detector on the card against the CPU on a
+holds each against its plain PyTorch version at the main path's shapes,
+on edge cases and (the sketch kernels) at 2048-16384 services, checks the detector on the card against the CPU on a
 small input and with 65,536 and 131,072 CMS bins, then
 drives the main path end to end (OTLP protobuf bodies → decode →
 ``SpanTensorizer`` → ``DetectorPipeline`` → reports) at the default
@@ -122,7 +122,7 @@ the link, in turns. The in-process reshard drill
 (``measure_reshard``) runs on the card and on the CPU at two configs:
 ``fleet_ok``, a labelled partial answer, and the victim's documents
 card = CPU. The churn soak (512 services) and the million-key soak
-(4096 services: the sketch kernel past 48 KB of shared memory) run
+(4096 services: the sketch kernel walks them a tile at a time) run
 through the native front door at their defaults. It prints the TTD,
 the lag p99, the bytes of a delta frame, the dispatch-lock hold per
 ship, the link's cost in spans/s, the soaks' keys/s and RSS per million
@@ -138,7 +138,11 @@ on its first faulty batch and never before, ``/metrics``, ``/query`` and
 ``/healthz`` answering, no component restart, no warm-up error. Then a
 second daemon boots from the first's shutdown checkpoint with its state,
 names, offsets and epoch, and takes 4 faulty batches as the
-uninterrupted twin does; the orders corpus and its ×4 flood go through
+uninterrupted twin does; a daemon at ``ANOMALY_NUM_SERVICES=8192``,
+``ANOMALY_HLL_P=8``, ``ANOMALY_CMS_WIDTH=1024`` and B = 4096 takes the
+same corpus two bodies a batch through its front door against a CPU
+twin daemon (flags identical, the fault flagged on its first batch and
+never before, one fused-update launch a batch); the orders corpus and its ×4 flood go through
 the daemon's own Kafka pump (flagged on the flood's first batch, every
 order counted, offsets committed); a primary and a standby daemon, the
 standby promoted by its watchdog with the primary's final state on the
@@ -458,6 +462,13 @@ def delta_bound_bytes(lanes, s: int, cfg) -> int:
     return b * (4 * 5 + 1 + 4 * d) + (s * (1 << cfg.hll_p) + d * cfg.cms_width + 4 * s) * 4
 
 
+def partials_bytes(plan, s: int) -> int:
+    """Bytes of the stats partials the sketch kernel moves besides its
+    inputs and outputs: each of the plan's blocks writes its row [4, S]
+    whole, and the reduction reads every row once."""
+    return 2 * plan.grid * 4 * s * 4
+
+
 def delta_args(lanes):
     return tuple(lanes[k] for k in ("svc", "log_lat", "is_error", "trace_hi", "trace_lo", "cidx", "valid"))
 
@@ -541,10 +552,11 @@ def special_cases(rng, cfg, device):
 # so the head epilogue takes several passes, and with stats for so many
 # services that a block has room for two warps.
 MANY_SERVICES = ((2048, 64), (2048, 192), (8192, 1000))
-# Past the 1,524 services one warp's stats fit in 48 KB: the plan opts in
-# to more shared memory. At the million-key soak's geometry (B = 4096,
-# HLL p = 8, CMS 4 x 1024).
-OPT_IN_SERVICES = (2048, 4096)
+# Service counts past a warp's tile of stats (the kernel walks them a tile
+# at a time, and every block sums its own run of services after the grid
+# barrier), up to twice the million-key soak's 8192 slots, at its geometry
+# (B = 4096, HLL p = 8, CMS 4 x 1024).
+TILED_SERVICES = (2048, 4096, 8192, 16384)
 
 
 def soak_config(cfg, s):
@@ -596,8 +608,7 @@ def check_k1(cfg, device, lanes, state, what, moved=True) -> float:
 def phase_fused_update(cfg, device, results):
     """K1 against its plain version at B = 2048, 8192 and 65536 (the
     widths it is timed at), on the edge cases and at many services, up
-    to 4096 (past the 48 KB of shared memory a block gets without
-    opting in)."""
+    to 16384 (walked a tile of services at a time)."""
     from opentelemetry_demo_tpu_torch.ops import fused
 
     rng = np.random.default_rng(1)
@@ -611,11 +622,13 @@ def phase_fused_update(cfg, device, results):
         c = cfg._replace(num_services=s)
         lanes = batch_lanes(rng, c, b, device, n_active=s)
         worst = max(worst, check_k1(c, device, lanes, random_state(rng, c, device), f"B={b} S={s}"))
-    for s in OPT_IN_SERVICES:
+    for s in TILED_SERVICES:
         c = soak_config(cfg, s)
         lanes = batch_lanes(rng, c, 4096, device, n_active=s)
+        plan = fused.launch_plan(4096, s)
         worst = max(worst, check_k1(c, device, lanes, random_state(rng, c, device),
-                                    f"B=4096 S={s} p=8 Wc=1024 (shared memory {fused.launch_plan(4096, s).smem_bytes} B)"))
+                                    f"B=4096 S={s} p=8 Wc=1024 ({plan.threads} threads, tiles of {plan.tile} "
+                                    f"services, shared memory {plan.smem_bytes} B)"))
     results["fused_update"] = {"max_abs_err": worst}
 
 
@@ -705,7 +718,11 @@ def check_k3(args, kw, what, nonempty=True) -> float:
 def phase_sketch_delta(cfg, device, results):
     """K3 against its plain version at B = 2048, 32768 and 65536, on one
     rank's full width (S=32, D=4) and a (2 × 2) mesh rank's slice (S=16,
-    D=2), on the edge cases and at many services."""
+    D=2), on the edge cases and at many services, up to 16384; there its
+    stats must also equal K1's bit for bit (one plan, one summing
+    order)."""
+    from opentelemetry_demo_tpu_torch.ops import fused
+
     rng = np.random.default_rng(7)
     worst = 0.0
     for s, d in ((32, 4), (16, 2)):
@@ -722,6 +739,15 @@ def phase_sketch_delta(cfg, device, results):
         kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
         args = delta_args(batch_lanes(rng, c, b, device, n_active=s))
         worst = max(worst, check_k3(args, kw, f"B={b} S={s} D={c.cms_depth}"))
+    for s in TILED_SERVICES:
+        c = soak_config(cfg, s)
+        kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
+        args = delta_args(batch_lanes(rng, c, 4096, device, n_active=s))
+        worst = max(worst, check_k3(args, kw, f"B=4096 S={s} p={c.hll_p} Wc={c.cms_width}"))
+        k1 = fused.fused_update(torch.zeros((1, s, 1 << c.hll_p), dtype=torch.int32, device=device),
+                                torch.zeros((1, c.cms_depth, c.cms_width), dtype=torch.int32, device=device),
+                                *args, num_services=s, hll_p=c.hll_p)
+        check(torch.equal(k1, fused.sketch_delta(*args, **kw).stats), f"K1 and K3 stats differ at S={s}")
     results["sketch_delta"] = {"max_abs_err": worst}
 
 
@@ -3707,8 +3733,8 @@ def fleet_reshard(device, results):
 def fleet_soaks(device, results):
     """The churn soak and the million-key soak at their defaults through
     the native front door into pipelines on the card (512 and 4096
-    services; the second launches the sketch kernel above 48 KB of
-    shared memory)."""
+    services; the second launches the sketch kernel past a warp's tile of
+    services)."""
     from opentelemetry_demo_tpu_torch.ops import _kernels
     from opentelemetry_demo_tpu_torch.runtime.frontdoorbench import measure_churn_soak, measure_million_key_soak
 
@@ -4212,6 +4238,59 @@ def daemon_wide(device, n_warm=24, n_fault=3, per=8):
     return rec
 
 
+def daemon_many_services(device, n_warm=40, n_fault=4, per=2):
+    """``DetectorDaemon`` on the card at ``ANOMALY_NUM_SERVICES=8192``,
+    ``ANOMALY_HLL_P=8``, ``ANOMALY_CMS_WIDTH=1024`` (the million-key
+    soak's sketch geometry at twice its slots) and ``ANOMALY_BATCH=4096``:
+    the native B = 2048 corpus two bodies a batch through its front door,
+    a ×10 latency step from batch 40, against a CPU twin daemon fed the
+    same way. Flags identical, ``service-07`` flagged on the first faulty
+    batch and never before, state within tolerance, one fused-update
+    launch a batch."""
+    from opentelemetry_demo_tpu_torch.models.detector import state_to_numpy
+    from opentelemetry_demo_tpu_torch.ops import _kernels
+
+    clean, faulty, _spans = e2e_bodies(2048, n_warm, n_fault, 1)
+    n = n_warm + n_fault
+    ks = range(n)
+    knobs = dict(ANOMALY_NUM_SERVICES=8192, ANOMALY_HLL_P=8, ANOMALY_CMS_WIDTH=1024, ANOMALY_BATCH=4096)
+    with daemon_env("many", **knobs):
+        d, boot_s = boot_daemon(device)
+    try:
+        check(d.detector.config.num_services == 8192 and d.detector.state.hll_bank.is_cuda,
+              "the many-services daemon is not at 8192 services on the card")
+        _kernels.reset_launches()
+        wall = feed_daemon(d, clean, faulty, ks, n_warm, per, "daemon at 8192 services")
+        launches = _kernels.LAUNCHES["fused_update"]
+        check(launches == n == d.pipeline.stats.batches, f"daemon at 8192 services: {launches} launches, "
+              f"{d.pipeline.stats.batches} batches, {n} fed")
+        onset_flags(d.reports, n_warm, "daemon at 8192 services")
+        restarts = no_restarts(d, "daemon at 8192 services")
+        with daemon_env("many_cpu", **knobs):
+            c, cpu_boot_s = boot_daemon("cpu")
+        try:
+            t0 = time.perf_counter()
+            feed_daemon(c, clean, faulty, ks, n_warm, per, "CPU twin daemon at 8192 services")
+            cpu_wall = time.perf_counter() - t0
+            states_close(state_to_numpy(d.detector.state), state_to_numpy(c.detector.state),
+                         "daemon at 8192 services vs CPU")
+            onset_flags(c.reports, n_warm, "CPU twin daemon at 8192 services")
+            same_flags(d.reports, c.reports, ks, "daemon at 8192 services vs CPU")
+        finally:
+            c.shutdown()
+        lag = d.pipeline.stats.lag_p99_ms()
+    finally:
+        d.shutdown()
+    rec = dict(boot_s=boot_s, cpu_boot_s=cpu_boot_s, wall_s=wall, cpu_wall_s=cpu_wall,
+               spans_per_s=n * 4096 / wall, lag_p99_ms=lag, launches=launches, restarts=restarts)
+    print(f"daemon at 8192 services: ANOMALY_NUM_SERVICES=8192 HLL p=8 CMS 4x1024 B=4096 on the card, boot "
+          f"{boot_s:.3f} s (CPU twin {cpu_boot_s:.3f} s); {n} batches of {per} bodies through the front door: "
+          f"{rec['spans_per_s']:.0f} spans/s answered and stepped (CPU twin {cpu_wall:.2f} s), lag p99 {lag:.3f} ms; "
+          f"state == the CPU twin daemon within tolerance, flags identical, service-{SLOW:02d} flagged on the first "
+          f"faulty batch and never before; fused_update launches {launches}, restarts {restarts} ({gpu_line()})")
+    return rec
+
+
 def daemon_process(n_warm=40, fault_s=30.0):
     """``python -m opentelemetry_demo_tpu_torch`` with no ``--device``
     (the card) at the default knobs plus ephemeral ports and the front
@@ -4319,14 +4398,16 @@ def daemon_live_fleet():
 
 def phase_daemon(device, results):
     """The detector daemon on the card: the front door into an
-    in-process daemon against its CPU and pipeline twins, the orders leg
-    through the daemon's pump, the resume from its shutdown checkpoint,
-    a primary/standby pair with promotion, the wide (K2) daemon, the
-    module entry point as a process, and the live fleet drills."""
+    in-process daemon against its CPU and pipeline twins, the resume from
+    its shutdown checkpoint, the front door at 8192 services against a
+    CPU twin, the orders leg through the daemon's pump, a primary/standby
+    pair with promotion, the wide (K2) daemon, the module entry point as
+    a process, and the live fleet drills."""
     t0 = time.perf_counter()
     out = {}
     out["doors"], d, twin = daemon_doors(device, results)
     out["resume"] = daemon_resume(device, d, twin)
+    out["many_services"] = daemon_many_services(device)
     out["orders"] = daemon_orders(device)
     out["roles"] = daemon_roles(device)
     out["wide"] = daemon_wide(device)
@@ -4334,7 +4415,7 @@ def phase_daemon(device, results):
     out["live_fleet"] = daemon_live_fleet()
     shutil.rmtree(DAEMON_DIR, ignore_errors=True)
     results["fused_update"]["launches_daemon"] = {
-        leg: out[leg]["launches"] for leg in ("doors", "resume", "orders", "roles")}
+        leg: out[leg]["launches"] for leg in ("doors", "resume", "many_services", "orders", "roles")}
     results["cms_hist"]["launches_daemon"] = {"wide": out["wide"]["launches"]}
     out["wall_s"] = time.perf_counter() - t0
     print(f"daemon phase: {out['wall_s']:.1f} s ({gpu_line()})")
@@ -5590,10 +5671,18 @@ def deploy_topology(device, work: Path, images: dict, dockerfiles: dict) -> dict
         metrics = f"http://127.0.0.1:{det.own(9464)}"
         rec["boot_s"] = time.perf_counter() - t0
         i, peak = 0, LanePeaks("payment")
+        # What this process (the checkouts' client) takes of the cores the
+        # topology shares while it warms: the lanes are host-bound.
+        cpu0, wall0 = time.process_time(), time.perf_counter()
+
+        def own_cpu() -> str:
+            return f"this process {time.process_time() - cpu0:.2f} CPU s in {time.perf_counter() - wall0:.2f} s"
+
         while True:
             text = peak.see(scrape(metrics))
             check(flag_count(text, "payment") == 0.0,
-                  f"deploy: payment flagged before the flip (its lanes now {peak.lanes(text)}; {peak})")
+                  f"deploy: payment flagged before the flip (its lanes now {peak.lanes(text)}; {peak}; "
+                  f"warm-up: {own_cpu()})")
             batches = metric_value(text, "app_anomaly_batches_dispatched") or 0.0
             if batches >= DEPLOY_WARM_BATCHES and (metric_value(text, "app_anomaly_spans_processed_total") or 0) > 0:
                 break
@@ -5613,7 +5702,8 @@ def deploy_topology(device, work: Path, images: dict, dockerfiles: dict) -> dict
                     consumer.close()
             return out
 
-        print(f"deploy: before the flip, {peak}")
+        rec["warm_own_cpu"] = own_cpu()
+        print(f"deploy: before the flip, {peak}; warm-up: {rec['warm_own_cpu']}")
         rec.update(warm_peak_lanes=peak.peak, warm_peak_shares=peak.shares())
         rec["committed_warm"] = committed()
         status, _, _ = http_call(base, "POST", "/feature/api/write-to-file", {"data": PAYMENT_FAILURE})
@@ -6373,12 +6463,14 @@ def phase_times(cfg, device, results):
     """Each kernel, its plain version and the library call on the same
     inputs, in turns (plain, kernel, kernel, plain), at the shapes of its
     paths; and each kernel's device time split by device operation. K1 is
-    timed at B = 2048 (the main path), 8192 and 65536, and at B = 4096
-    with 2048 and 4096 services (the million-key soak's geometry, past
-    48 KB of shared memory); K3 at a (2 × 2)
+    timed at B = 2048 (the main path), 8192 and 65536; K3 at a (2 × 2)
     mesh rank's shape and at one rank's full width, B = 2048 and 65536
     (the one-rank mesh leg's widths). Both also at B = 1, and K1 at 2048
-    without its head epilogue, to show the launch's fixed cost."""
+    without its head epilogue, to show the launch's fixed cost. Both at
+    B = 4096 with 2048-16384 services (the million-key soak's geometry),
+    with the composed path (``sketch_impl="xla"``, which the reference
+    selects at such counts) timed beside them, and a second bound that
+    counts the partials each block writes whole and the reduction reads."""
     from opentelemetry_demo_tpu_torch.ops import cms, fused
 
     rng = np.random.default_rng(6)
@@ -6412,7 +6504,7 @@ def phase_times(cfg, device, results):
                             lambda: fused.fused_update(*args1, **kw), 10),
                 bound_ms=fused_bound_bytes(one, cfg) / HBM_BYTES_PER_S * 1e3,
             )
-    for s in OPT_IN_SERVICES:
+    for s in TILED_SERVICES:
         c = soak_config(cfg, s)
         lanes = batch_lanes(rng, c, 4096, device, n_active=s)
         hll_bank, cms_bank, heads = random_state(rng, c, device)
@@ -6420,10 +6512,15 @@ def phase_times(cfg, device, results):
                   dt=torch.tensor(DT_S, device=device),
                   step_pos=torch.tensor(7, dtype=torch.int32, device=device), statics=head_kw(c))
         args = (hll_bank[:, 0], cms_bank[:, 0], *k1_args(lanes))
+        composed = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width, impl="xla", heads=kw["heads"],
+                        dt=kw["dt"], step_pos=kw["step_pos"], **head_kw(c))
+        plan = fused.launch_plan(4096, s)
         k1["shapes"][f"B=4096 S={s}"] = dict(
             time_kernel(lambda: fused.fused_update_plain(*args, **kw), lambda: fused.fused_update(*args, **kw), 4),
+            composed_ms=time_ms(lambda: fused.sketch_batch_update(*args, **composed), 4)[0],
             bound_ms=fused_bound_bytes(lanes, c) / HBM_BYTES_PER_S * 1e3,
-            plan=fused.launch_plan(4096, s)._asdict(),
+            bound_with_partials_ms=(fused_bound_bytes(lanes, c) + partials_bytes(plan, s)) / HBM_BYTES_PER_S * 1e3,
+            plan=plan._asdict(),
         )
     k1.update(k1["shapes"]["B=2048"], library_ms=None)
 
@@ -6469,13 +6566,29 @@ def phase_times(cfg, device, results):
             time_kernel(lambda: fused.sketch_delta_plain(*args, **kw), lambda: fused.sketch_delta(*args, **kw), 20),
             bound_ms=delta_bound_bytes(lanes, s, c) / HBM_BYTES_PER_S * 1e3,
         )
+    for s in TILED_SERVICES:
+        c = soak_config(cfg, s)
+        lanes = batch_lanes(rng, c, 4096, device, n_active=s)
+        args = delta_args(lanes)
+        kw = dict(num_services=s, hll_p=c.hll_p, cms_width=c.cms_width)
+        k3["shapes"][f"B=4096 S={s} D={c.cms_depth}"] = dict(
+            time_kernel(lambda: fused.sketch_delta_plain(*args, **kw), lambda: fused.sketch_delta(*args, **kw), 4),
+            composed_ms=time_ms(lambda: fused.sketch_batch_delta(*args, **kw, impl="xla"), 4)[0],
+            bound_ms=delta_bound_bytes(lanes, s, c) / HBM_BYTES_PER_S * 1e3,
+            bound_with_partials_ms=(delta_bound_bytes(lanes, s, c) + partials_bytes(fused.launch_plan(4096, s), s))
+            / HBM_BYTES_PER_S * 1e3,
+        )
     k3.update(k3["shapes"]["B=32768 S=16 D=2"], library_ms=None)
 
     for name, r in results.items():
         for label, t in r["shapes"].items():
             (p1, pw), (k1_, kw_), (k2_, _), (p2, _) = t["turns"]
+            extra = ""
+            if "composed_ms" in t:
+                extra = (f"; composed path {t['composed_ms']} ms; bound with the partials "
+                         f"{t['bound_with_partials_ms']:.6f} ms")
             print(f"time {name} {label}: device kernel {k1_:.5f} / {k2_:.5f} ms, plain {p1:.5f} / "
-                  f"{p2:.5f} ms; wall kernel {kw_:.5f} ms, plain {pw:.5f} ms; bound {t['bound_ms']:.6f} ms")
+                  f"{p2:.5f} ms; wall kernel {kw_:.5f} ms, plain {pw:.5f} ms; bound {t['bound_ms']:.6f} ms{extra}")
             print(f"  device operations per call ({name} {label}): {show_breakdown(t['breakdown'])}")
     print(f"time torch.bincount (yardstick of cms_hist): device {k2['library_ms']} ms "
           f"({show_breakdown(k2['library_breakdown'])}), wall {k2['library_wall_ms']:.5f} ms")

@@ -25,11 +25,12 @@
 // 3.35 TB/s, so the launch and a few dependent memory round trips set
 // the time.
 //
-// Design (sketch_kernels.cuh): one cooperative launch per call.
+// Design (sketch_kernels.cuh): one cooperative launch per call, at any
+// service count, in shared memory that does not grow with it.
 // Fixed-order per-block stats partials, a grid barrier, then warp-merged
 // atomics straight into each of the W banks (atomicMax for HLL, atomicAdd
-// for CMS) while block 0 sums the partials in block order and runs
-// head_update.
+// for CMS) while every block sums the partials of its run of services in
+// block order and runs their head_update cells.
 
 #include "sketch_kernels.cuh"
 
@@ -39,7 +40,7 @@ extern "C" int fused_update_launch(
     const void* valid, int B, int S, int p, int D, int Wc, void* hll,
     long long hll_ws, void* cms, long long cms_ws, int n_windows,
     void* partials, void* stats, int grid, int threads,
-    int lanes_per_block, int smem, int fold, void* lat_mean, void* lat_var,
+    int lanes_per_block, int smem, int tile, int fold, void* lat_mean, void* lat_var,
     void* err_mean, void* rate_mean, void* rate_var, void* cusum,
     void* obs_batches, const void* dt, const void* step_idx, void* lat_z,
     void* err_z, void* rate_z, const float* taus, int n_taus, float warmup,
@@ -50,7 +51,7 @@ extern "C" int fused_update_launch(
       (const int*)svc, (const float*)log_lat, (const float*)is_error,
       (const int*)trace_hi, (const int*)trace_lo, (const int*)cidx,
       (const unsigned char*)valid, B, S, p, D, Wc, (int*)hll, hll_ws,
-      (int*)cms, cms_ws, n_windows, lanes_per_block, grid, (float*)partials,
+      (int*)cms, cms_ws, n_windows, lanes_per_block, tile, grid, (float*)partials,
       (float*)stats, nullptr, 0};
   HeadArgs h = {};
   h.fold = fold;

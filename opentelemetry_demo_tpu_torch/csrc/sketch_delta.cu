@@ -30,9 +30,9 @@
 // SM at least, so a small batch's clear is spread over the card too), and
 // no atomic comes before the barrier. Then warp-merged
 // atomicMax/atomicAdd into the cleared registers and counters, while
-// block 0 sums the fixed-order per-block stats partials in block order,
-// so repeated runs give the same bits on every rank. One device
-// operation per call.
+// every block sums the fixed-order per-block stats partials of its run of
+// services in block order, so repeated runs give the same bits on every
+// rank. One device operation per call, at any service count.
 
 #include "sketch_kernels.cuh"
 
@@ -41,13 +41,13 @@ extern "C" int sketch_delta_launch(
     const void* trace_hi, const void* trace_lo, const void* cidx,
     const void* valid, int B, int S, int p, int D, int Wc, void* out,
     void* partials, void* stats, int stat_blocks, int threads,
-    int lanes_per_block, int smem, int grid, void* stream) {
+    int lanes_per_block, int smem, int tile, int grid, void* stream) {
   const long long n_hll = (long long)S << p;
   SketchArgs a = {
       (const int*)svc, (const float*)log_lat, (const float*)is_error,
       (const int*)trace_hi, (const int*)trace_lo, (const int*)cidx,
       (const unsigned char*)valid, B, S, p, D, Wc, (int*)out, 0,
-      (int*)out + n_hll, 0, 1, lanes_per_block, stat_blocks, (float*)partials,
+      (int*)out + n_hll, 0, 1, lanes_per_block, tile, stat_blocks, (float*)partials,
       (float*)stats, (int*)out, n_hll + (long long)D * Wc};
   return (int)launch_sketch(a, HeadArgs{}, grid, threads, smem, (cudaStream_t)stream);
 }

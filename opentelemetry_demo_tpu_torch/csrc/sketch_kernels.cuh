@@ -24,11 +24,10 @@
 // state.hll_bank[:, 0] needs no contiguous copy.
 //
 // Design. A block owns a fixed run of lanes_per_block lanes (the launch
-// plan in ops/fused.py sizes the grid to the card's SMs, a thread per
-// lane up to 512 a block, fewer when many services' stats fill shared
-// memory) and walks it 32 lanes per warp at a time. Each warp loads its
-// first slice's lanes (and, in block 0, the head memory of the epilogue)
-// at once at the start,
+// plan in ops/fused.py sizes the grid to the card's SMs and gives a block
+// a thread per lane up to 512, at every service count) and walks it 32
+// lanes per warp at a time. Each warp loads its first slice's lanes (and
+// each block the head memory of its first cells) at once at the start,
 // so the kernel waits on memory a few times in all, not once per field:
 //   - Hot keys are merged inside the warp before any atomic. Lanes with
 //     the same CMS counter (one __match_any_sync per row) send one
@@ -43,42 +42,59 @@
 //   - Stats are summed in a fixed order: lanes of one service in a warp
 //     slice by the group's leader in lane order, the slices of a warp in
 //     order, the warps of a block in order, then the blocks in block order
-//     (below). Nothing depends on timing, so two launches give the same
+//     (in runs of 32, below). Nothing depends on timing, so two launches give the same
 //     bits, and fused_update and sketch_delta, which share this code and
 //     the launch plan (a function of B, S and the card alone), give the
 //     same stats for one batch.
+//   - Shared memory does not grow with S. A warp's accumulators cover a
+//     tile of the plan's `tile` services (all of them up to 168-744
+//     services, by the block's warps); past it the block walks the
+//     services a tile at a time, each tile's warp sums going in warp
+//     order into the block's own row of the global partials [4, S]. Each
+//     service lies in one tile, so the order is the same for any tile. A
+//     block whose lanes are all invalid still writes its row (zeros).
 //   - The cross-block reduction and the head epilogue run in the same
 //     launch, which is cooperative (every block resident at once, or the
-//     launch is refused): each block writes its partials, the grid meets
-//     at cooperative_groups' grid.sync(), and then every block sends its
-//     bank atomics while block 0 sums the partials in block order (each
-//     stat's blocks cut into a few fixed chunks summed by as many
-//     threads, loads issued 32 at a time, then the chunks in order) and
-//     runs head_update, a thread per (service, timescale) cell, on the
-//     heads it loaded at its start. A service's observation count and
-//     CUSUM are read by all of its cells and written by its last one, so
-//     block 0 copies them to shared memory at its start and no cell reads
-//     them from global memory after any cell has written.
+//     launch is refused): each block writes its row of partials, the grid
+//     meets at cooperative_groups' grid.sync(), then every block sends
+//     its bank atomics and takes a contiguous run of ceil(S / grid)
+//     services, or a chunk (blockDim / max(T, 4) services) if that is
+//     more: at the main path's few services block 0 takes them all, since
+//     spreading a few services over many blocks was slower on the H100
+//     (PERF.md). A block sums its services' partials over the plan's
+//     blocks: runs of 32 blocks, each summed in block order by one lane
+//     with its loads issued at once, then the runs in order by the first
+//     of the stat's neighbouring lanes (an order set by the plan's grid
+//     alone). In the fused update it then runs their head cells, a thread
+//     per (service, timescale) cell, a chunk at a time. A block owns whole
+//     services, so the rule that each cell reads its service's
+//     observation count and CUSUM before any cell writes them (the last
+//     timescale's cell writes them) is kept by a __syncthreads between
+//     the reads and the writes, with no copy.
 //   - A clear (the delta's outputs) is done by the launch itself: each
 //     block clears a share before the grid.sync(), so no atomic lands
 //     before the clear. Such a launch has at least a block per SM, so a
 //     small batch's clear is spread over the card too: blocks past the
 //     plan's grid own no lanes and write no partials, so the stats order
-//     is the plan's.
+//     is the plan's; they take their run of services in the reduction.
 //   - Nothing is kept between launches: the grid barrier is the runtime's.
 //
-// Bound on the H100: bytes, far below the launch cost at the main path's
-// shapes (each lane is read once, about 37 B at D = 4, and each touched
-// bank cell read and written once per window: under 1 MB at B = 2048,
-// a fraction of a microsecond at 3.35 TB/s). There is no matrix product,
-// so wgmma has nothing to do, and each lane is read once, so TMA's bulk
-// copies would save no traffic: the time is the launch, a few dependent
-// memory round trips (lanes, grid barrier, partials, heads) and the
-// atomics.
+// Bound on the H100: bytes. At the main path's shapes they are far below
+// the launch cost (each lane is read once, about 37 B at D = 4, and each
+// touched bank cell read and written once per window: under 1 MB at
+// B = 2048, a fraction of a microsecond at 3.35 TB/s). At many services
+// the head memory and the partials grow with S: at the million-key soak's
+// B = 4096 (p = 8, CMS 4 x 1024, 3 windows, 3 timescales, 32 blocks) the
+// function moves 1.18 MB at S = 4096 and 2.01 MB at S = 8192 (the
+// heads read and written, the stats and z's written), and the partials,
+// written whole by each block and read once, add 4.19 MB and 8.39 MB
+// (32 x 4 x S floats each way): 5.4 MB and 10.4 MB, 1.6 and 3.1 us. There
+// is no matrix product, so wgmma has nothing to do, and each lane is read
+// once, so TMA's bulk copies would save no traffic: the time is the
+// launch, a few dependent memory round trips (lanes, grid barrier,
+// partials, heads) and the atomics.
 
 #pragma once
-
-#include <mutex>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,6 +108,7 @@ namespace cg = cooperative_groups;
 constexpr int kMaxTaus = 8;
 constexpr int kMaxDepth = 8;  // CMS rows a lane keeps in registers
 constexpr int kMaxThreads = 512;
+constexpr int kRun = 32;  // blocks one thread sums in the cross-block reduction
 constexpr unsigned kFull = 0xffffffffu;
 
 struct HeadParams {
@@ -120,7 +137,8 @@ struct SketchArgs {
   long long cms_ws;
   int n_windows;
   int lanes_per_block;
-  int stat_blocks;  // blocks that own lanes (the launch plan's grid); any more only clear
+  int tile;  // services a warp's accumulators cover (the plan's tile)
+  int stat_blocks;  // blocks that own lanes (the plan's grid); any more clear and reduce only
   float* partials;  // [stat_blocks, 4, S]
   float* stats;     // [4, S]
   int* clear;  // cleared in the launch before any atomic, or null
@@ -173,16 +191,23 @@ __device__ __forceinline__ Lane load_lane(const SketchArgs& a, long long i, bool
   return l;
 }
 
-// One (service, timescale) cell's own head memory, loaded before it is
-// needed. Only the cell's thread reads and writes these.
+// One (service, timescale) cell's head memory, loaded before it is
+// needed: the cell's own (only its thread reads and writes these) and its
+// service's observation count and CUSUM, which every cell of the service
+// reads and the last timescale's cell writes, so they are read before the
+// barrier after which the cells write.
 struct HeadIn {
   float lat_mean, lat_var, err_mean, rate_mean, rate_var;
   float dt;
   int step;
+  float obs;
+  float cusum[3];
 };
 
 __device__ __forceinline__ HeadIn load_head(const HeadArgs& h, int q) {
   HeadIn in;
+  const int T = h.hp.n_taus;
+  const int s = q / T;
   in.lat_mean = h.lat_mean[q];
   in.lat_var = h.lat_var[q];
   in.err_mean = h.err_mean[q];
@@ -190,23 +215,26 @@ __device__ __forceinline__ HeadIn load_head(const HeadArgs& h, int q) {
   in.rate_var = h.rate_var[q];
   in.dt = *h.dt;
   in.step = *h.step_idx;
+  in.obs = h.obs_batches[s];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) in.cusum[j] = q - s * T == T - 1 ? h.cusum[s * 3 + j] : 0.f;
   return in;
 }
 
 // head_update, verbatim from the reference (ops/fused.py), for cell
 // q = s*T + t: the EWMA heads of timescale t and, in the thread of the
 // last timescale (whose z's and error mean the CUSUM reads), the CUSUM
-// and the observation count of service s, read from `obs` and `cusum`
-// (the block's copy, taken before any cell wrote). One thread per cell,
-// so the timescales advance side by side.
-__device__ void head_update(const HeadArgs& h, int q, const HeadIn& in, float obs,
-                            const float* cusum, float cnt, float lat_sum,
-                            float lat_sumsq, float err_sum) {
+// and the observation count of service s, from the values in `in` (read
+// before any cell wrote). One thread per cell, so the timescales advance
+// side by side.
+__device__ void head_update(const HeadArgs& h, int q, const HeadIn& in, float cnt,
+                            float lat_sum, float lat_sumsq, float err_sum) {
   const HeadParams& hp = h.hp;
   const int T = hp.n_taus;
   const int s = q / T;
   const int t = q - s * T;
   const float dt = in.dt;
+  const float obs = in.obs;
   const bool step_pos = in.step > 0;
   const bool seen = cnt > 0.f;
   const bool warm = obs < hp.warmup;
@@ -260,16 +288,17 @@ __device__ void head_update(const HeadArgs& h, int q, const HeadIn& in, float ob
   const float scores[3] = {s_lat, s_err, s_rate};
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float c = cusum[j] + scores[j];
+    const float c = in.cusum[j] + scores[j];
     h.cusum[s * 3 + j] = fminf(fmaxf(c, 0.f), hp.cusum_cap);
   }
 }
 
-// A warp slice's stats into the warp's accumulators: lanes of one service
+// A warp slice's stats for services [t0, t0 + n) into the warp's
+// accumulators wpart [4][tile] (service t0 + k at k): lanes of one service
 // are summed by the group's leader in lane order, through `stage`.
-__device__ __forceinline__ void warp_stats(const Lane& l, int S, int lane, float* stage,
-                                           float* wpart) {
-  const bool ok = l.valid && l.svc >= 0 && l.svc < S;
+__device__ __forceinline__ void warp_stats(const Lane& l, int t0, int n, int tile, int lane,
+                                           float* stage, float* wpart) {
+  const bool ok = l.valid && l.svc >= t0 && l.svc < t0 + n;
   const unsigned ok_mask = __ballot_sync(kFull, ok);
   stage[lane] = l.x;
   stage[32 + lane] = l.e;
@@ -286,10 +315,11 @@ __device__ __forceinline__ void warp_stats(const Lane& l, int S, int lane, float
         s2 += xj * xj;
         s3 += stage[32 + j];
       }
-      wpart[l.svc] += c;
-      wpart[S + l.svc] += s1;
-      wpart[2 * S + l.svc] += s2;
-      wpart[3 * S + l.svc] += s3;
+      const int k = l.svc - t0;
+      wpart[k] += c;
+      wpart[tile + k] += s1;
+      wpart[2 * tile + k] += s2;
+      wpart[3 * tile + k] += s3;
     }
   }
   __syncwarp();
@@ -331,155 +361,153 @@ __device__ __forceinline__ void warp_banks(const SketchArgs& a, const Lane& l, i
   }
 }
 
-// Sum of partials[b, o] over blocks b in [lo, hi), in block order; the
-// loads are issued 32 at a time (from L2: other blocks wrote them).
-__device__ __forceinline__ float sum_partials(const float* partials, int o, int stride,
-                                              int lo, int hi) {
+// Sum of partials[b, o] over a run of blocks b in [lo, hi), at most kRun,
+// in block order; the loads are issued at once (from L2: other blocks
+// wrote them).
+__device__ __forceinline__ float sum_run(const float* partials, int o, int stride, int lo,
+                                         int hi) {
+  float v[kRun];
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    v[j] = lo + j < hi ? __ldcg(partials + (long long)(lo + j) * stride + o) : 0.f;
+  }
   float acc = 0.f;
-  for (int b = lo; b < hi; b += 32) {
-    float v[32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      v[j] = b + j < hi ? __ldcg(partials + (long long)(b + j) * stride + o) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      if (b + j < hi) acc += v[j];
-    }
+  for (int j = 0; j < kRun; ++j) {
+    if (lo + j < hi) acc += v[j];
   }
   return acc;
 }
 
-// Dynamic shared memory: per-warp stats accumulators [n_warps][4][S],
-// per-warp staging of one slice's log-lat and error [n_warps][2][32],
-// block 0's chunk sums [blockDim.x], and block 0's copy of every
-// service's observation count and CUSUM [S] + [S, 3]
-// (fused.launch_plan keeps it all under the default 48 KB).
+// Dynamic shared memory, flat in S: per-warp stats accumulators for a
+// tile of services [n_warps][4][tile], per-warp staging of one slice's
+// log-lat and error [n_warps][2][32], and the epilogue's stats of a chunk
+// of services [blockDim.x] (fused.launch_plan keeps it all under the
+// default 48 KB).
 __global__ void __launch_bounds__(kMaxThreads) sketch_kernel(SketchArgs a, HeadArgs h) {
   extern __shared__ float smem[];
   const int S = a.S;
+  const int tile = a.tile;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
   float* part = smem;
-  float* wpart = part + warp * 4 * S;
-  float* stage = smem + n_warps * 4 * S + warp * 64;
-  float* red = smem + n_warps * (4 * S + 64);
-  float* snap_obs = red + blockDim.x;
-  float* snap_cusum = snap_obs + S;
-  const bool head_block = h.fold && blockIdx.x == 0;
+  float* wpart = part + warp * 4 * tile;
+  float* stage = smem + n_warps * 4 * tile + warp * 64;
+  float* st = smem + n_warps * (4 * tile + 64);
 
-  // The warp's first slice (its only one unless B > 512 a block) and, in
-  // block 0, the heads of the thread's first cell and every service's
-  // observation count and CUSUM: all loaded at once, before anything
-  // waits, and before any cell writes them.
+  // This block's run of services in the epilogue, a chunk at a time: a
+  // thread per head cell of the chunk (fused update), and for each of its
+  // stats `span` neighbouring lanes (a power of 2) that sum a run of kRun
+  // blocks each, in passes over the block's threads. A block takes at
+  // least a chunk: spreading a few services over more blocks was slower.
+  const int T = h.fold ? h.hp.n_taus : 0;
+  const int G = a.stat_blocks;
+  const int runs = (G + kRun - 1) / kRun;
+  int span = 1;
+  while (span < runs) span <<= 1;
+  const int chunk = blockDim.x / max(T, 4);
+  const int per_block = max((S + gridDim.x - 1) / gridDim.x, min(S, chunk));
+  const int s_lo = (int)min((long long)S, (long long)blockIdx.x * per_block);
+  const int s_hi = min(S, s_lo + per_block);
+
+  // The warp's first slice (its only one unless B > 512 a block) and the
+  // head memory of the thread's first cell: loaded at once, before
+  // anything waits, and before any cell writes.
   const long long b0 = (long long)blockIdx.x * a.lanes_per_block;
   const long long b1 = min((long long)a.B, b0 + a.lanes_per_block);
   const long long first = b0 + warp * 32;
   const Lane mine = load_lane(a, first + lane, first + lane < b1);
-  const int n_cells = S * h.hp.n_taus;
   HeadIn head_in = {};
-  if (head_block && tid < n_cells) head_in = load_head(h, tid);
-  if (head_block) {
-    for (int s = tid; s < S; s += blockDim.x) {
-      snap_obs[s] = h.obs_batches[s];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) snap_cusum[s * 3 + j] = h.cusum[s * 3 + j];
-    }
-  }
-  for (int t = tid; t < n_warps * 4 * S; t += blockDim.x) part[t] = 0.f;
+  if (tid < min(chunk, s_hi - s_lo) * T) head_in = load_head(h, s_lo * T + tid);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long c = (long long)blockIdx.x * blockDim.x + tid; c < a.n_clear; c += stride) {
     a.clear[c] = 0;
   }
-  __syncthreads();
 
-  // Stats, in a fixed order.
-  Lane l = mine;
-  for (long long base = first; base < b1; base += blockDim.x) {
-    if (base != first) l = load_lane(a, base + lane, base + lane < b1);
-    warp_stats(l, S, lane, stage, wpart);
+  // Stats, in a fixed order, a tile of services at a time, into this
+  // block's row of partials (the warps in order). Blocks past the plan's
+  // grid own no lanes and write none.
+  if (blockIdx.x < a.stat_blocks) {
+    float* out = a.partials + (long long)blockIdx.x * 4 * S;
+    for (int t0 = 0; t0 < S; t0 += tile) {
+      const int n = min(tile, S - t0);
+      for (int t = tid; t < n_warps * 4 * tile; t += blockDim.x) part[t] = 0.f;
+      __syncthreads();
+      Lane l = mine;
+      for (long long base = first; base < b1; base += blockDim.x) {
+        if (base != first) l = load_lane(a, base + lane, base + lane < b1);
+        warp_stats(l, t0, n, tile, lane, stage, wpart);
+      }
+      __syncthreads();
+      for (int t = tid; t < 4 * n; t += blockDim.x) {
+        const int j = t / n;
+        const int k = t - j * n;
+        float acc = 0.f;
+        for (int w = 0; w < n_warps; ++w) acc += part[(w * 4 + j) * tile + k];
+        out[(long long)j * S + t0 + k] = acc;
+      }
+      if (t0 + tile < S) __syncthreads();
+    }
   }
-  __syncthreads();
 
-  // This block's partials (the warps in order), then the grid barrier,
-  // which publishes every block's partials and its share of the clear.
-  // The bank atomics come after it, so no atomic lands before the clear
-  // and the barrier does not wait for them.
-  float* out = a.partials + (long long)blockIdx.x * 4 * S;
-  for (int t = tid; blockIdx.x < a.stat_blocks && t < 4 * S; t += blockDim.x) {
-    float acc = 0.f;
-    for (int w = 0; w < n_warps; ++w) acc += part[w * 4 * S + t];
-    out[t] = acc;
-  }
+  // The grid barrier publishes every block's partials and its share of
+  // the clear. The bank atomics come after it, so no atomic lands before
+  // the clear and the barrier does not wait for them.
   cg::this_grid().sync();
 
-  l = mine;
+  Lane l = mine;
   for (long long base = first; base < b1; base += blockDim.x) {
     if (base != first) l = load_lane(a, base + lane, base + lane < b1);
     warp_banks(a, l, lane);
   }
-  if (blockIdx.x != 0) return;
 
-  // Block 0: every block's partials, in block order. Each of the 4*S
-  // stats is split into k chunks of blocks, summed by k threads, then the
-  // chunks in order.
-  const int n_out = 4 * S;
-  const int G = a.stat_blocks;
-  const int k = max(1, (int)blockDim.x / n_out);
-  const int chunk = (G + k - 1) / k;
-  float* st = part;
-  if (k > 1) {
-    if (tid < k * n_out) {
-      const int j = tid / n_out;
-      red[tid] = sum_partials(a.partials, tid % n_out, n_out, j * chunk,
-                              min(G, (j + 1) * chunk));
+  // This block's services: each stat summed over the plan's blocks, the
+  // runs of kRun blocks in block order, each in block order (the order is
+  // a function of the plan's grid alone), then (fused update) their head
+  // cells.
+  for (int c0 = s_lo; c0 < s_hi; c0 += chunk) {
+    const int n = min(chunk, s_hi - c0);
+    const bool cell = tid < n * T;
+    if (cell && c0 != s_lo) head_in = load_head(h, c0 * T + tid);
+    for (int base = 0; base < 4 * n * span; base += blockDim.x) {
+      const int o = (base + tid) / span;  // stat o of the chunk: stat j of service c0 + k
+      const int r = base + tid - o * span;
+      const int j = o / n;
+      const int k = o - j * n;
+      float v = 0.f;
+      if (o < 4 * n && r < runs) {
+        v = sum_run(a.partials, j * S + c0 + k, 4 * S, r * kRun, min(G, (r + 1) * kRun));
+      }
+      // The runs of a stat sit on neighbouring lanes; the first adds the
+      // others in run order.
+      float acc = v;
+      for (int i = 1; i < span; ++i) {
+        const float w = __shfl_sync(kFull, v, (lane & ~(span - 1)) + i);
+        if (i < runs) acc += w;
+      }
+      if (o < 4 * n && r == 0) st[o] = acc;
     }
+    // The chunk's stats are in; every cell has read its head memory.
     __syncthreads();
-  }
-  for (int o = tid; o < n_out; o += blockDim.x) {
-    float acc = 0.f;
-    if (k > 1) {
-      for (int j = 0; j < k; ++j) acc += red[j * n_out + o];
-    } else {
-      acc = sum_partials(a.partials, o, n_out, 0, G);
+    for (int o = tid; o < 4 * n; o += blockDim.x) {
+      const int j = o / n;
+      a.stats[j * S + c0 + o - j * n] = st[o];
     }
-    st[o] = acc;
-    a.stats[o] = acc;
-  }
-  if (!h.fold) return;
-  __syncthreads();
-  for (int q = tid; q < n_cells; q += blockDim.x) {
-    const HeadIn in = q == tid ? head_in : load_head(h, q);
-    const int s = q / h.hp.n_taus;
-    head_update(h, q, in, snap_obs[s], snap_cusum + s * 3, st[s], st[S + s],
-                st[2 * S + s], st[3 * S + s]);
+    if (cell) {
+      const int q = tid / T;
+      head_update(h, c0 * T + tid, head_in, st[q], st[n + q], st[2 * n + q], st[3 * n + q]);
+    }
+    if (c0 + chunk < s_hi) __syncthreads();
   }
 }
 
 // The launch, on `st`: cooperative, since the blocks wait for each other
 // at the grid barrier and must all be resident (the launch is refused
-// otherwise). A plan above the default 48 KB of dynamic shared memory
-// (many services: ops/fused.py launch_plan) opts the kernel in to it
-// first, once for each larger size. Returns the first error.
+// otherwise). Returns the launch's error.
 inline cudaError_t launch_sketch(SketchArgs a, HeadArgs h, int grid, int threads, int smem,
                                  cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    // The attribute belongs to the current device: one record each.
-    static std::mutex mu;
-    static int opted[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-    std::lock_guard<std::mutex> hold(mu);
-    if (smem > opted[dev]) {
-      err = cudaFuncSetAttribute(sketch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      opted[dev] = smem;
-    }
-  }
   void* args[] = {&a, &h};
   return cudaLaunchCooperativeKernel((const void*)sketch_kernel, dim3(grid), dim3(threads),
                                      args, (size_t)smem, st);

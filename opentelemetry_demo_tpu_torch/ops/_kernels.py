@@ -51,7 +51,7 @@ _ARGTYPES = {
         _I, _I, _I, _I, _I,  # B S p D Wc
         _P, _L, _P, _L, _I,  # hll hll_ws cms cms_ws n_windows
         _P, _P,  # partials stats
-        _I, _I, _I, _I,  # grid threads lanes_per_block smem
+        _I, _I, _I, _I, _I,  # grid threads lanes_per_block smem tile
         _I,  # fold
         _P, _P, _P, _P, _P, _P, _P,  # lat_mean lat_var err_mean rate_mean rate_var cusum obs
         _P, _P,  # dt step_idx
@@ -70,16 +70,14 @@ _ARGTYPES = {
         _P, _P, _P, _P, _P, _P, _P,  # svc log_lat is_error hi lo cidx valid
         _I, _I, _I, _I, _I,  # B S p D Wc
         _P, _P, _P,  # out partials stats
-        _I, _I, _I, _I,  # stat_blocks threads lanes_per_block smem
+        _I, _I, _I, _I, _I,  # stat_blocks threads lanes_per_block smem tile
         _I,  # grid
         _P,  # stream
     ],
 }
 
-# Largest dynamic shared memory an H100 block may opt in to, in bytes,
-# and the streaming multiprocessors of an H100 SXM (launch plans read the
+# The streaming multiprocessors of an H100 SXM (launch plans read the
 # card's own count through sm_count).
-SMEM_LIMIT = 232448
 N_SMS = 132
 
 LAUNCHES = {name: 0 for name in _ARGTYPES}

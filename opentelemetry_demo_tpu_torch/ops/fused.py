@@ -11,8 +11,9 @@ and, given ``heads``, advances the heads too. Its impls:
 
 - ``"pallas"``: :func:`fused_update` — on a CUDA tensor the hand-written
   kernel ``csrc/fused_update.cu`` (one launch: warp-merged HLL
-  ``atomicMax`` and CMS ``atomicAdd`` into every bank, fixed-order stats,
-  the head epilogue in block 0); on a CPU tensor its plain version.
+  ``atomicMax`` and CMS ``atomicAdd`` into every bank, fixed-order stats
+  summed and the head epilogue run over the whole grid, at any service
+  count); on a CPU tensor its plain version.
 - ``"xla"``: the composed path — :func:`sketch_batch_delta` (scatter-max
   HLL, the CMS count through :func:`cms.cms_count`, matmul segment
   stats), merged into the banks, then :func:`head_update`.
@@ -334,6 +335,7 @@ class SketchPlan(NamedTuple):
     threads: int  # threads per block
     lanes_per_block: int  # each block's run of lanes; the last may be short
     smem_bytes: int  # dynamic shared memory per block
+    tile: int  # services a warp's stats accumulators cover at a time
 
 
 # Threads per block of the sketch kernel at most (its __launch_bounds__),
@@ -344,8 +346,8 @@ _SKETCH_MAX_DEPTH = 8
 # blocks) were slower on the H100 than 16 blocks of 128 (PERF.md): the
 # kernel waits on memory, and more blocks add partials to sum.
 _SKETCH_MIN_LANES = 128
-# Dynamic shared memory a block gets without opting in to more, in floats
-# (the plan goes past it only where one warp needs more).
+# Dynamic shared memory of a block, in floats: the 48 KB a block gets
+# without opting in to more, whatever the service count.
 _SKETCH_SMEM_FLOATS = 48 * 1024 // 4
 
 
@@ -355,36 +357,26 @@ def launch_plan(b: int, num_services: int, n_sms: int = _kernels.N_SMS) -> Sketc
     over a run of whole 32-lane warp slices (at least 128 lanes), one
     thread per lane up to 512, so the grid spreads a batch over as many
     SMs as its lanes allow and each warp loads its lanes once. It depends
-    on the batch and the card alone (not on the CMS depth or the window
-    count), so ``fused_update`` and ``sketch_delta`` sum the stats of one
-    batch in the same order.
+    on the batch, the service count and the card alone (not on the CMS
+    depth or the window count), so ``fused_update`` and ``sketch_delta``
+    sum the stats of one batch in the same order.
 
-    Shared memory holds each warp's stats ``[4, S]`` and a 32-lane
-    staging slice, block 0's chunk sums (a float a thread) and its copy of
-    the services' observation counts and CUSUMs ``[4, S]``. The plan keeps
-    it under the default 48 KB, with fewer warps for many services (each
-    then walks more slices). Where one warp does not fit there
-    (S > 1524), it budgets against the card's opt-in limit
-    (``_kernels.SMEM_LIMIT``; the launch opts in), so every plan that
-    fits in 48 KB is the same as without the opt-in. A service count
-    whose single warp does not fit even then (S > 7252) raises.
+    Shared memory holds each warp's stats for a tile of services
+    ``[4, tile]`` and a 32-lane staging slice, and the epilogue's stats
+    of a chunk of services (a float a thread). The tile is every service
+    where that fits in 48 KB (168 services at 16 warps, 744 at 4) and the
+    most that does past it: the kernel then walks the services a tile at
+    a time. So shared memory does not grow with the service count, every
+    count gets whole warps, and none needs the opt-in.
     """
-    s = num_services
     per_sm = -(-b // n_sms)
     lanes = max(_SKETCH_MIN_LANES, -(-per_sm // 32) * 32)
-    max_warps = (_SKETCH_SMEM_FLOATS - 4 * s) // (4 * s + 64 + 32)
-    if max_warps < 1:
-        limit = _kernels.SMEM_LIMIT // 4
-        max_warps = (limit - 4 * s) // (4 * s + 64 + 32)
-        if max_warps < 1:
-            raise ValueError(
-                f"the sketch kernel keeps stats for {s} services in shared memory "
-                f"({(8 * s + 96) * 4} B for one warp); a block may opt in to at most "
-                f"{_kernels.SMEM_LIMIT} B, which holds one warp up to 7252 services"
-            )
-    threads = min(_SKETCH_MAX_THREADS, lanes, 32 * max_warps)
-    smem = ((threads // 32) * (4 * s + 64) + threads + 4 * s) * 4
-    return SketchPlan(max(1, -(-b // lanes)), threads, lanes, smem)
+    threads = min(_SKETCH_MAX_THREADS, lanes)
+    warps = threads // 32
+    room = (_SKETCH_SMEM_FLOATS - threads - 64 * warps) // (4 * warps)
+    tile = max(1, min(num_services, room))
+    smem = (warps * (4 * tile + 64) + threads) * 4
+    return SketchPlan(max(1, -(-b // lanes)), threads, lanes, smem, tile)
 
 
 def _check_kernel_args(hll_cur, cms_cur, batch, cidx, heads, hll_p) -> None:

@@ -509,8 +509,14 @@ def _check_plan(plan, b, s, n_sms):
     assert plan.lanes_per_block % 32 == 0 and plan.lanes_per_block >= plan.threads
     assert (plan.grid - 1) * plan.lanes_per_block < b <= plan.grid * plan.lanes_per_block
     warps = plan.threads // 32
-    assert plan.smem_bytes == (warps * (4 * s + 64) + plan.threads + 4 * s) * 4
-    assert plan.smem_bytes <= 48 * 1024 <= _kernels.SMEM_LIMIT
+    # Whole warps, and shared memory sized by the tile of services, not
+    # by the service count: the tile is every service where 48 KB holds
+    # them, and as many as it holds past that.
+    assert plan.threads == min(512, plan.lanes_per_block)
+    assert 1 <= plan.tile <= s
+    assert plan.smem_bytes == (warps * (4 * plan.tile + 64) + plan.threads) * 4
+    assert plan.smem_bytes <= 48 * 1024
+    assert plan.tile == s or (warps * (4 * plan.tile + 68) + plan.threads) * 4 > 48 * 1024
     # The grid spreads the lanes: one block per 128 lanes until the card
     # is three quarters full.
     assert plan.grid >= min(-(-b // 128), 3 * n_sms // 4), (b, plan)
@@ -531,28 +537,21 @@ def test_sketch_launch_plan_fits_the_h100(s, d):
         _check_plan(plan, b, s, _kernels.N_SMS)
         assert plan.threads == min(512, plan.lanes_per_block)
     assert fused.launch_plan(0, s).grid == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        fused.launch_plan(2048, 20000)
+    # A service count the shared memory once refused plans as well.
+    _check_plan(fused.launch_plan(2048, 20000), 2048, 20000, _kernels.N_SMS)
 
 
 @pytest.mark.parametrize("n_sms", [114, 132])
 @pytest.mark.parametrize("s", [64, 192, 1000, 1524])
 def test_sketch_launch_plan_many_services_stays_under_48kb(s, n_sms):
-    """Many services fill shared memory with per-warp stats: the plan
-    takes fewer warps (each walking more slices) rather than opting in to
-    more than 48 KB, on an H100 SXM (132 SMs) or PCIe (114 SMs), up to
-    the count whose single warp does not fit in 48 KB (1524); past it the
-    plan opts in (above 48 KB), and it raises past the count whose single
-    warp does not fit in the opt-in limit (7252)."""
+    """Many services: the plan keeps whole warps and 48 KB of shared
+    memory, on an H100 SXM (132 SMs) or PCIe (114 SMs), and walks the
+    services in tiles where one tile would not hold them all; so do the
+    counts the plan once opted in for (1525) or refused (7253)."""
     for b in PLAN_WIDTHS:
-        plan = fused.launch_plan(b, s, n_sms)
-        _check_plan(plan, b, s, n_sms)
-        # As many warps as a thread per lane, 512 and 48 KB allow.
-        one_more = (plan.threads // 32 + 1) * (4 * s + 96) + 4 * s
-        assert plan.threads == min(512, plan.lanes_per_block) or one_more > 48 * 1024 // 4
-    assert 48 * 1024 < fused.launch_plan(2048, 1525, n_sms).smem_bytes <= _kernels.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        fused.launch_plan(2048, 7253, n_sms)
+        _check_plan(fused.launch_plan(b, s, n_sms), b, s, n_sms)
+        for many in (1525, 7253):
+            _check_plan(fused.launch_plan(b, many, n_sms), b, many, n_sms)
 
 
 def test_sketch_kernels_refuse_more_cms_rows_than_a_lane_keeps():
