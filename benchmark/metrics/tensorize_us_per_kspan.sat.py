@@ -1,0 +1,8 @@
+"""Tensorize and admission (the pool's `tensorize` and `submit`
+phases) per 1000 spans, in us."""
+
+from benchmark.metrics._common import pool_us_per_kspan
+
+
+def read(rec):
+    return pool_us_per_kspan(rec, "tensorize", "submit")
