@@ -55,6 +55,7 @@ from .otlp import MONITORED_ATTR_KEYS
 from .selftrace import (
     PHASE_DECODE,
     PHASE_EXTRACT,
+    PHASE_QUEUE_WAIT,
     PHASE_SCAN,
     PHASE_SUBMIT,
     PHASE_TENSORIZE,
@@ -343,7 +344,8 @@ class IngestPool:
         # Self-telemetry (runtime.selftrace), both optional, one call per
         # flush: ``phase_observe(phase, seconds)`` feeds the phase
         # histograms, and ``selftrace.flush_segment`` records the flush's
-        # phases for the next sampled batch trace.
+        # phases for the next sampled batch trace. Besides, each request's
+        # wait in the queue goes to ``phase_observe`` alone.
         self.phase_observe = phase_observe
         self.selftrace = selftrace
         self._q = _JobQueue(max_pending)
@@ -391,7 +393,7 @@ class IngestPool:
         until the ticket resolves.
         """
         ticket = DecodeTicket()
-        self._enqueue(("payload", payload, ticket))
+        self._enqueue(("payload", payload, ticket, time.perf_counter()))
         return ticket
 
     def submit_records(self, records: list[SpanRecord]) -> DecodeTicket | None:
@@ -401,7 +403,7 @@ class IngestPool:
         if not records:
             return None
         ticket = DecodeTicket()
-        self._enqueue(("records", records, ticket))
+        self._enqueue(("records", records, ticket, time.perf_counter()))
         return ticket
 
     def _enqueue(self, item) -> None:
@@ -438,6 +440,9 @@ class IngestPool:
             for _ in range(n_stop - 1):
                 self._q.put_unbounded(_STOP)
             if jobs:
+                if self.phase_observe is not None:
+                    for job in jobs:
+                        self.phase_observe(PHASE_QUEUE_WAIT, time.perf_counter() - job[3])
                 t0 = time.perf_counter()
                 try:
                     self._process(jobs, arena)
@@ -447,7 +452,7 @@ class IngestPool:
                     # our fault for the client's bytes.
                     err = IngestWorkerError(f"{type(e).__name__}: {e}")
                     err.__cause__ = e
-                    for _kind, _data, ticket in jobs:
+                    for _kind, _data, ticket, _t_enq in jobs:
                         if ticket is not None and not ticket._done:
                             ticket._resolve(err)
                     with self._stats_lock:
@@ -463,8 +468,8 @@ class IngestPool:
                 return
 
     def _process(self, batch: list, arena: InternArena | None = None) -> None:
-        payload_jobs = [(d, t) for kind, d, t in batch if kind == "payload"]
-        record_jobs = [(d, t) for kind, d, t in batch if kind == "records"]
+        payload_jobs = [(d, t) for kind, d, t, _t_enq in batch if kind == "payload"]
+        record_jobs = [(d, t) for kind, d, t, _t_enq in batch if kind == "records"]
         parts: list[SpanColumns] = []
         errors: dict[int, BaseException] = {}  # job index → decode error
         # This flush's phase ledger: the same durations feed phase_s,

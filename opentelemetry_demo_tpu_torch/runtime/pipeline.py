@@ -52,7 +52,9 @@ JSON-able (``query_meta``).
 Read side (all hooks default to None and then cost one None check):
 ``selftrace`` (a ``runtime.selftrace.SelfTracer``) samples batch
 lifecycles into traces that ride the batch from pump to harvester;
-``phase_observe(phase, seconds)`` feeds per-phase histograms; and
+``phase_observe(phase, seconds)`` feeds per-phase histograms, each
+phase observed on its own thread when it ends (``runtime.selftrace``);
+and
 ``provenance`` (a ``runtime.provenance.ProvenanceEngine``) rings every
 harvested report and builds one evidence bundle per flagged service.
 A flag's bundle cites the state at the flag: :meth:`DetectorPipeline.state_snapshot`
@@ -103,8 +105,12 @@ from .selftrace import (
     PHASE_FLAG,
     PHASE_HARVEST,
     PHASE_HARVEST_LAG,
+    PHASE_INFLIGHT,
+    PHASE_PENDING_WAIT,
+    PHASE_PUMP,
     PHASE_PUT_WAIT,
-    PHASE_STAGE,
+    PHASE_REPORT,
+    PHASE_SPINE_WAIT,
     SPAN_DISPATCH,
     SPAN_FLAG,
     SPAN_HARVEST,
@@ -283,6 +289,7 @@ class DetectorPipeline:
                 depth=spine_ring,
                 overlap=spine_overlap,
                 chunk_rows=spine_chunk_rows,
+                phase_observe=phase_observe,
             )
         self.max_wait_s = max_wait_s
         # Report readback cadence: 0 reads a report every pump; a
@@ -326,8 +333,9 @@ class DetectorPipeline:
         # Guards the watermark, ladder and bucket read-modify-writes:
         # they come from every receiver thread and the pump.
         self._admission_lock = threading.Lock()
-        # (t_batch, t_oldest, host report, ready event, host columns);
-        # the columns feed flag-time exemplar capture.
+        # (t_batch, t_oldest, host report, ready event, host columns,
+        # self-trace, dispatch's end on perf_counter); the columns feed
+        # flag-time exemplar capture.
         self._inflight: deque = deque()
         self._inflight_lock = threading.Lock()
         self._dispatch_lock = threading.Lock()
@@ -633,6 +641,14 @@ class DetectorPipeline:
         caller's last timebase is reused, so a virtual-time stream never
         mixes in ``time.monotonic()``.
         """
+        t0 = time.perf_counter()
+        try:
+            self._pump(t_now)
+        finally:
+            if self.phase_observe is not None:
+                self.phase_observe(PHASE_PUMP, time.perf_counter() - t0)
+
+    def _pump(self, t_now: float | None) -> None:
         if t_now is None:
             t_now = self._last_t if self._last_t is not None else time.monotonic()
         self._last_t = t_now
@@ -683,6 +699,8 @@ class DetectorPipeline:
                     budget -= head.rows
             self._pending_rows -= sum(p.rows for p in parts)
             rows_after = self._pending_rows
+        if parts and self.phase_observe is not None:
+            self.phase_observe(PHASE_PENDING_WAIT, time.monotonic() - t_oldest)
         self._admission_update(rows_after)
         if not parts:
             # A batch staged on an earlier pump may be ready now;
@@ -738,7 +756,8 @@ class DetectorPipeline:
             ready.record()
         else:
             host, ready = flat, None
-        dispatch_dt = time.perf_counter() - t0
+        t_dispatched = time.perf_counter()
+        dispatch_dt = t_dispatched - t0
         if self.phase_observe is not None:
             self.phase_observe(PHASE_DISPATCH, dispatch_dt)
         if trace is not None:
@@ -748,7 +767,7 @@ class DetectorPipeline:
         self.stats.spans += n_valid
         with self._inflight_lock:
             # The batch's self-trace (or None) rides to the harvester.
-            self._inflight.append((t_now, t_oldest, host, ready, cols, trace))
+            self._inflight.append((t_now, t_oldest, host, ready, cols, trace, t_dispatched))
             # At most two in flight: an older report is dropped unread.
             while len(self._inflight) > 2:
                 self._inflight.popleft()
@@ -774,7 +793,8 @@ class DetectorPipeline:
         if staged is None:
             return False
         if self.phase_observe is not None:
-            self.phase_observe(PHASE_STAGE, staged.stage_dur)
+            # The stager observed the stage itself, on its own thread.
+            self.phase_observe(PHASE_SPINE_WAIT, time.perf_counter() - staged.t_staged)
             self.phase_observe(PHASE_PUT_WAIT, staged.wait_s)
         if staged.trace is not None:
             staged.trace.span(SPAN_STAGE, staged.stage_dur)
@@ -1229,7 +1249,9 @@ class DetectorPipeline:
     # -- report processing --------------------------------------------
 
     def _process_report(self, item) -> None:
-        t_batch, t_oldest, host, ready, cols, trace = item
+        t_batch, t_oldest, host, ready, cols, trace, t_dispatched = item
+        if self.phase_observe is not None:
+            self.phase_observe(PHASE_INFLIGHT, time.perf_counter() - t_dispatched)
         self._note_outcome(skipped=False)
         probe = self._start_rtt_probe() if self.rtt_probe else None
         t_fetch = time.perf_counter()
@@ -1237,16 +1259,17 @@ class DetectorPipeline:
             ready.synchronize()
         report = report_unpack(host.numpy(), self.detector.config)
         fetch_dt = time.perf_counter() - t_fetch
+        if self.phase_observe is not None:
+            self.phase_observe(PHASE_HARVEST, fetch_dt)
+        if trace is not None:
+            trace.span(SPAN_HARVEST, fetch_dt)
         if self._provenance is not None:
             # Ring the head columns of every report: already host numpy.
             self._provenance.observe_report(float(t_batch), report)
         lag_ms = (time.monotonic() - t_oldest) * 1e3
         self.stats.lag_ms.append(lag_ms)
         if self.phase_observe is not None:
-            self.phase_observe(PHASE_HARVEST, fetch_dt)
             self.phase_observe(PHASE_HARVEST_LAG, lag_ms / 1e3)
-        if trace is not None:
-            trace.span(SPAN_HARVEST, fetch_dt)
         if probe is not None:
             probe["thread"].join(timeout=10.0)
             self.stats.rtt_ms.append(probe["res"].get("rtt", float("nan")))
@@ -1298,4 +1321,7 @@ class DetectorPipeline:
                 # the report is the product.
                 pass
         if self.on_report is not None:
+            t_report = time.perf_counter()
             self.on_report(t_batch, report, flagged)
+            if self.phase_observe is not None:
+                self.phase_observe(PHASE_REPORT, time.perf_counter() - t_report)

@@ -22,6 +22,17 @@ watches:
 The same table names the phases of ``anomaly_phase_seconds{phase=}``
 and of the decode pool's ``phase_s``, so span names, histogram labels
 and dashboards cannot drift apart.
+
+**The phase contract.** Every ``phase_observe(phase, seconds)`` call is
+made on the thread that ran the phase, at the moment the phase ends:
+the observer's ``time.perf_counter()`` at the call is the span's end,
+and that minus ``seconds`` is its start. So a log of the calls is a
+timeline of every thread on one clock. Work phases time host work
+(decode … flag, ``report``, ``pump``); the wait phases time how long
+work sat between two layers (``queue_wait``, ``pending_wait``,
+``spine_wait``, ``inflight``) and feed ``phase_observe`` only: never the
+pool's ``phase_s`` (a split of a flush's working time) nor a batch
+trace.
 """
 
 from __future__ import annotations
@@ -74,6 +85,20 @@ PHASE_DISPATCH = "dispatch"
 PHASE_HARVEST = "harvest"
 PHASE_HARVEST_LAG = "harvest_lag"
 PHASE_FLAG = "flag"
+# Waits between layers, each observed where the wait ends:
+# a request in the decode pool's queue (enqueue → a worker's take);
+PHASE_QUEUE_WAIT = "queue_wait"
+# a batch's oldest rows in the pipeline's pending queue (enqueue → the
+# pump's take);
+PHASE_PENDING_WAIT = "pending_wait"
+# a staged batch on the spine's ring (stage → take; ``put_wait`` is the
+# blocking tail of it);
+PHASE_SPINE_WAIT = "spine_wait"
+# a dispatched batch's report in flight (dispatch's end → its harvest).
+PHASE_INFLIGHT = "inflight"
+# The pipeline's ``on_report`` callback, and one whole ``pump`` call.
+PHASE_REPORT = "report"
+PHASE_PUMP = "pump"
 
 # Phase → span-name projection (the flush segments arrive keyed by
 # phase label; the trace renders them as spans).

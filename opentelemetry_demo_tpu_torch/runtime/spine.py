@@ -18,6 +18,9 @@ pump thread inside the dispatch tick. The spine moves them onto a
 - ``release(staged)`` (pump thread, after the step is enqueued) records
   an event on the dispatch stream and frees the slot.
 
+With a ``phase_observe`` hook the stager observes each batch's
+``stage`` phase itself, when its pack and copy issue end.
+
 A slot is one pinned int32 host buffer of 8 × B laid out as
 ``AnomalyDetector._args`` lays out a batch, packed in place through
 numpy views (``SpanTensorizer.pack_columns_into``), and one device
@@ -50,6 +53,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .selftrace import PHASE_STAGE
 from .tensorize import SpanColumns, SpanTensorizer, TensorBatch
 
 
@@ -63,13 +67,14 @@ class StagedBatch:
     device lanes out once the stager has issued the copy.
 
     ``stage_dur`` and ``wait_s`` are this batch's own pack+copy-issue
-    seconds and the seconds a waiting ``take`` spent on it. ``trace`` is
+    seconds and the seconds a waiting ``take`` spent on it; ``t_staged``
+    is the ``perf_counter`` of its ``stage`` call. ``trace`` is
     the batch's sampled self-trace (``runtime.selftrace.BatchTrace``) or
     None: carried to dispatch, never read on the stager thread."""
 
     __slots__ = (
         "cols", "width", "t_now", "t_oldest", "lanes", "copied", "slot",
-        "error", "ready", "stage_dur", "wait_s", "trace",
+        "error", "ready", "stage_dur", "wait_s", "trace", "t_staged",
     )
 
     def __init__(self, cols: SpanColumns, width: int, t_now, t_oldest, trace=None):
@@ -85,6 +90,7 @@ class StagedBatch:
         self.ready = threading.Event()
         self.stage_dur = 0.0
         self.wait_s = 0.0
+        self.t_staged = time.perf_counter()
 
     def copy_done(self) -> bool:
         return self.copied is None or self.copied.query()
@@ -137,6 +143,7 @@ class DevicePutSpine:
         depth: int = 2,
         overlap: bool = True,
         chunk_rows: int = 0,
+        phase_observe=None,
     ):
         if depth < 1:
             raise ValueError(f"spine ring depth must be >= 1 (got {depth})")
@@ -146,6 +153,7 @@ class DevicePutSpine:
         self.depth = int(depth)
         self.overlap = bool(overlap)
         self.chunk_rows = int(chunk_rows)
+        self.phase_observe = phase_observe
         self._side = torch.cuda.Stream(self.device) if self._cuda else None
         self._slots = [_Slot() for _ in range(self.depth)]
         self._seq = 0
@@ -360,6 +368,8 @@ class DevicePutSpine:
                     dev.copy_(buf)
                 staged.lanes = dev
                 staged.stage_dur = time.perf_counter() - t0
+                if self.phase_observe is not None:
+                    self.phase_observe(PHASE_STAGE, staged.stage_dur)
                 with self._lock:
                     self.puts_total += 1
                     self.step_waits += step_wait

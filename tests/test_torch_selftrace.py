@@ -43,14 +43,15 @@ def _cols(rng, n, services=4):
     )
 
 
-def drive_flagging_pipeline(which, tracer, phase_observe=None, batches=30):
+def drive_flagging_pipeline(which, tracer, phase_observe=None, batches=30, **port_kw):
     """A small detector warmed up, then service 3's latency ×10,000 so the
-    flag path fires; returns the ingested trace-id prefixes of service 3."""
+    flag path fires; returns the ingested trace-id prefixes of service 3.
+    ``port_kw`` goes to the port's pipeline alone."""
     kw = dict(**SMALL, warmup_batches=2.0, z_warmup_batches=3.0)
     if which == "port":
         pipe = DetectorPipeline(
             tdet.AnomalyDetector(tdet.DetectorConfig(**kw), device="cpu"), batch_size=64,
-            exemplar_ring=4, selftrace=tracer, phase_observe=phase_observe,
+            exemplar_ring=4, selftrace=tracer, phase_observe=phase_observe, **port_kw,
         )
         cols_t = tensorize.SpanColumns
     else:
@@ -75,6 +76,8 @@ def drive_flagging_pipeline(which, tracer, phase_observe=None, batches=30):
         pipe.drain()
         t += 0.25
     assert pipe.exemplars_captured > 0
+    if which == "port":
+        pipe.close()
     return submitted
 
 
@@ -346,13 +349,35 @@ def test_spine_carries_the_trace_to_dispatch():
 
 
 def test_phase_observe_sees_registered_labels_only():
+    """A flagging run on the spine with a report callback, and a decode
+    pool fed one body: every label observed is in the ``PHASE_*`` table,
+    the waits, ``report`` and ``pump`` among them."""
+    if not native.available():
+        pytest.skip(f"native ingest unavailable: {native.load_error()}")
+    from opentelemetry_demo_tpu_torch.runtime import ingest_pool, otlp_export
+
     phases: list[str] = []
     tracer = selftrace.SelfTracer(submit=lambda b: None, sample=0.0)
-    drive_flagging_pipeline("port", tracer, phase_observe=lambda n, dt: phases.append(n), batches=20)
+    drive_flagging_pipeline("port", tracer, phase_observe=lambda n, dt: phases.append(n), batches=20,
+                            spine_ring=2, on_report=lambda *a: None)
+    pool = ingest_pool.IngestPool(
+        lambda cols: None, tensorize.SpanTensorizer(8), workers=1,
+        phase_observe=lambda n, dt: phases.append(n),
+    )
+    body = otlp_export.encode_export_request(
+        [tensorize.SpanRecord("cart", 100.0 + i, bytes([i]) * 16) for i in range(20)], t_ns=10**18
+    )
+    try:
+        pool.submit(body).result(10.0)
+        assert pool.drain(10.0)
+    finally:
+        pool.close()
     table = {v for k, v in vars(selftrace).items() if k.startswith("PHASE_")}
     assert set(phases) <= table
     assert {selftrace.PHASE_DISPATCH, selftrace.PHASE_HARVEST, selftrace.PHASE_HARVEST_LAG,
-            selftrace.PHASE_FLAG} <= set(phases)
+            selftrace.PHASE_FLAG, selftrace.PHASE_STAGE, selftrace.PHASE_PUT_WAIT} <= set(phases)
+    assert {selftrace.PHASE_QUEUE_WAIT, selftrace.PHASE_PENDING_WAIT, selftrace.PHASE_SPINE_WAIT,
+            selftrace.PHASE_INFLIGHT, selftrace.PHASE_REPORT, selftrace.PHASE_PUMP} <= set(phases)
 
 
 def test_pool_flush_records_a_segment():

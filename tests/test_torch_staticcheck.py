@@ -71,3 +71,38 @@ def test_the_gate_finds_an_unthreaded_spine_overlap(on_the_port, tmp_path, where
     violations, _, _ = core.run_repo(str(tmp_path), ["knob-discipline"])
     found = [v.message for v in violations if "ANOMALY_SPINE_OVERLAP" in v.message]
     assert any(message in m for m in found), found
+
+
+def test_the_trace_discipline_pass_runs_clean_over_the_port(on_the_port):
+    violations, pragma_errors, _suppressed = core.run_repo(str(REPO), ["trace-discipline"])
+    assert not violations and not pragma_errors, "\n".join(v.render() for v in violations)
+
+
+# The six phases of the timeline, each observed at one call site.
+NEW_PHASES = {
+    "PHASE_QUEUE_WAIT": f"{PORT}/runtime/ingest_pool.py",
+    "PHASE_PENDING_WAIT": f"{PORT}/runtime/pipeline.py",
+    "PHASE_SPINE_WAIT": f"{PORT}/runtime/pipeline.py",
+    "PHASE_INFLIGHT": f"{PORT}/runtime/pipeline.py",
+    "PHASE_REPORT": f"{PORT}/runtime/pipeline.py",
+    "PHASE_PUMP": f"{PORT}/runtime/pipeline.py",
+}
+
+
+@pytest.mark.parametrize("const", sorted(NEW_PHASES))
+def test_trace_discipline_finds_a_phase_observed_by_a_literal(on_the_port, tmp_path, const):
+    """Each phase's call site passes its ``selftrace`` constant: written as
+    a literal instead, the pass reports the literal and the orphaned
+    constant."""
+    from opentelemetry_demo_tpu_torch.runtime import selftrace
+
+    rel = NEW_PHASES[const]
+    shutil.copytree(REPO / PORT, tmp_path / PORT, ignore=shutil.ignore_patterns("__pycache__"))
+    text = (tmp_path / rel).read_text()
+    site = f"self.phase_observe({const}, "
+    assert text.count(site) == 1
+    (tmp_path / rel).write_text(text.replace(site, f'self.phase_observe("{getattr(selftrace, const)}", '))
+    violations, _, _ = core.run_repo(str(tmp_path), ["trace-discipline"])
+    found = [v.message for v in violations]
+    assert any("string literal" in m and repr(getattr(selftrace, const)) in m for m in found), found
+    assert any(m.startswith(f"{const} ") and "never referenced" in m for m in found), found
