@@ -67,8 +67,9 @@ pass):
   and the device step): ``ANOMALY_SPINE_RING`` (pre-allocated
   host staging buffers, default 2 = double buffering; 0 = spine off,
   pack+put inline on the pump thread), ``ANOMALY_SPINE_OVERLAP``
-  (read for parity with the reference; this package's spine always
-  overlaps, and anomaly_spine_put_overlap_ratio reports the hit rate),
+  (0: every take waits for the stager; anomaly_spine_put_overlap_ratio
+  reports the hit rate, which falls toward 0 under light traffic, where
+  a caught-up pump waits for its own batch's copy on purpose),
   ``ANOMALY_SPINE_CHUNK_ROWS`` (pack copy block rows, 0 = whole batch)
 - Hot-standby replication knobs (one registry:
   ``utils.config.REPLICATION_KNOBS``; engine: ``runtime.replication``):

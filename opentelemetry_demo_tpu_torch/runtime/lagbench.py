@@ -100,6 +100,8 @@ def measure_lag(
     base_batches = pipe.stats.batches
     base_spans = pipe.stats.spans
     base_skipped = pipe.stats.reports_skipped
+    base_caught_up = pipe.stats.pumps_caught_up
+    base_same_pump = pipe.stats.reports_same_pump
 
     paced_loop(seconds, i)
     pipe.close()
@@ -112,6 +114,10 @@ def measure_lag(
         "batches": batches,
         "spans": pipe.stats.spans - base_spans,
         "reports_skipped": skipped,
+        # Pumps that found their input caught up, and reports read in the
+        # pump that dispatched them (``pipeline.PipelineStats``).
+        "pumps_caught_up": pipe.stats.pumps_caught_up - base_caught_up,
+        "reports_same_pump": pipe.stats.reports_same_pump - base_same_pump,
         "skip_rate": round(skipped / batches, 4) if batches else None,
         "final_batch_width": pipe.batch_width,
         "settle_s": settle_s if adaptive else None,

@@ -1,9 +1,20 @@
 """Streaming pipeline: records → batches → device, without host syncs.
 
-The latency budget (<100 ms p99 detection lag) shapes this module. The
-card runs asynchronously, so the pipeline keeps one report in flight:
-batch *k* is dispatched before batch *k-1*'s report is read, overlapping
-host tensorization, the host→device copy and the step.
+The latency budget (<100 ms p99 detection lag) shapes this module. How
+deep the pump pipelines across its own calls follows what it observes in
+its input:
+
+- caught up (its take left no rows pending, with a synchronous harvest
+  read every pump): the pump finishes in the same call what it formed.
+  It dispatches every staged batch, its own last, waiting only for each
+  copy to be issued, then reads every report in flight, oldest first, so
+  the next pump finds the card idle;
+- backlogged (rows remain after the take): the pump keeps one report in
+  flight. Batch *k* is dispatched before batch *k-1*'s report is read,
+  overlapping host tensorization, the host→device copy and the step.
+
+Every batch and every report is the same either way; only the time the
+host reads a report moves.
 
 Harvest: each dispatched step's packed report is copied with
 ``non_blocking=True`` into pinned host memory and a CUDA event is
@@ -187,6 +198,10 @@ class PipelineStats:
     # Flag-time state snapshots that failed: the bundle lost its state
     # block, the report still landed.
     provenance_misses: int = 0
+    # Pumps that found their input caught up and dispatched, and reports
+    # read in the pump call that dispatched them (module doc).
+    pumps_caught_up: int = 0
+    reports_same_pump: int = 0
 
     def lag_p99_ms(self) -> float:
         if not self.lag_ms:
@@ -338,6 +353,10 @@ class DetectorPipeline:
         # flag-time exemplar capture.
         self._inflight: deque = deque()
         self._inflight_lock = threading.Lock()
+        # The running pump call's number (-1 between calls), stamped on
+        # each report it dispatches.
+        self._pump_seq = 0
+        self._pump_call = -1
         self._dispatch_lock = threading.Lock()
         self._last_t: float | None = None
         self._tenant_of = tenant_of
@@ -635,16 +654,23 @@ class DetectorPipeline:
     # -- dispatch ------------------------------------------------------
 
     def pump(self, t_now: float | None = None) -> None:
-        """Form at most one batch and dispatch it (non-blocking).
+        """Form at most one batch and dispatch it.
 
-        Callers drive wall time or a virtual clock; without ``t_now`` the
-        caller's last timebase is reused, so a virtual-time stream never
-        mixes in ``time.monotonic()``.
+        A caught-up pump (the take left no rows pending, the harvest
+        synchronous and read every pump) dispatches every staged batch
+        and reads every report before it returns; a backlogged one
+        leaves the newest step in flight and reads one report (module
+        doc). Callers drive wall time or a virtual clock; without
+        ``t_now`` the caller's last timebase is reused, so a virtual-time
+        stream never mixes in ``time.monotonic()``.
         """
         t0 = time.perf_counter()
+        self._pump_seq += 1
+        self._pump_call = self._pump_seq
         try:
             self._pump(t_now)
         finally:
+            self._pump_call = -1
             if self.phase_observe is not None:
                 self.phase_observe(PHASE_PUMP, time.perf_counter() - t0)
 
@@ -702,13 +728,10 @@ class DetectorPipeline:
         if parts and self.phase_observe is not None:
             self.phase_observe(PHASE_PENDING_WAIT, time.monotonic() - t_oldest)
         self._admission_update(rows_after)
-        if not parts:
-            # A batch staged on an earlier pump may be ready now;
-            # otherwise an idle pump still reads a due report.
-            if self._spine is None or not self._pump_spine():
-                self._maybe_sync_harvest(keep=0)
-                return
-        else:
+        # Caught up: nothing left behind for the next pump to overlap
+        # with, so this call finishes what it formed (module doc).
+        caught_up = rows_after == 0 and not self.harvest_async and self.harvest_interval_s <= 0
+        if parts:
             cols = SpanColumns.concat(parts)
             self._capture_candidates(cols)
             # The sampling gate: None rides the path for unsampled batches.
@@ -717,15 +740,29 @@ class DetectorPipeline:
                 # The ring is the backpressure: past ``depth`` staged
                 # batches the pump dispatches the head, waiting for it.
                 while self._spine.pending() >= self._spine.depth:
+                    if caught_up:
+                        self._make_room()
                     self._pump_spine(force_wait=True)
                 self._spine.stage(cols, width, t_now, t_oldest, trace=trace)
-                self._pump_spine()
             else:
+                if caught_up:
+                    self._make_room()
                 batch = self.tensorizer.pack_columns(cols, width=width)
                 self._dispatch_batch(
                     lambda: self.detector.observe_packed(batch, t_now),
                     t_now, t_oldest, cols, batch.num_valid, trace=trace,
                 )
+        if caught_up:
+            self._finish_caught_up(dispatched=bool(parts))
+            return
+        if not parts:
+            # A batch staged on an earlier pump may be ready now;
+            # otherwise an idle pump still reads a due report.
+            if self._spine is None or not self._pump_spine():
+                self._maybe_sync_harvest(keep=0)
+                return
+        elif self._spine is not None:
+            self._pump_spine()
         if self.harvest_async:
             self._harvest_wake.set()
         else:
@@ -735,6 +772,24 @@ class DetectorPipeline:
             with self._pending_lock:
                 keep = 1 if self._pending else 0
             self._maybe_sync_harvest(keep=keep)
+
+    def _finish_caught_up(self, dispatched: bool) -> None:
+        """Dispatch every staged batch, oldest first, waiting only for the
+        stager to issue each copy (the step's stream waits on the copy's
+        event), then read every report in flight, oldest first."""
+        while self._spine is not None and self._spine.pending():
+            self._make_room()
+            dispatched |= self._pump_spine(force_wait=True)
+        if dispatched:
+            self.stats.pumps_caught_up += 1
+        while self._harvest_one(keep=0):
+            pass
+
+    def _make_room(self) -> None:
+        """Read the oldest reports until one is left in flight, so the
+        next dispatch pushes none out unread (at most two ride)."""
+        while self._harvest_one(keep=1):
+            pass
 
     def _dispatch_batch(
         self, step: Callable[[], torch.Tensor], t_now, t_oldest, cols, n_valid: int, trace=None
@@ -767,7 +822,9 @@ class DetectorPipeline:
         self.stats.spans += n_valid
         with self._inflight_lock:
             # The batch's self-trace (or None) rides to the harvester.
-            self._inflight.append((t_now, t_oldest, host, ready, cols, trace, t_dispatched))
+            self._inflight.append(
+                (t_now, t_oldest, host, ready, cols, trace, t_dispatched, self._pump_call)
+            )
             # At most two in flight: an older report is dropped unread.
             while len(self._inflight) > 2:
                 self._inflight.popleft()
@@ -779,8 +836,9 @@ class DetectorPipeline:
 
         With a step in flight only a batch whose copy is done is taken (a
         batch still copying goes on the next pump); with the card idle,
-        under drain, at the ring bound or with overlap off the pump waits
-        for it."""
+        under drain, at the ring bound, with overlap off or from a
+        caught-up pump (``force_wait``) the pump waits for the stager to
+        issue its copy."""
         with self._inflight_lock:
             idle = not self._inflight
         must_wait = (
@@ -1043,6 +1101,8 @@ class DetectorPipeline:
             if len(self._inflight) <= keep:
                 return False
             item = self._inflight.popleft()
+        if item[-1] == self._pump_call:
+            self.stats.reports_same_pump += 1
         self._process_report(item)
         return True
 
@@ -1249,7 +1309,7 @@ class DetectorPipeline:
     # -- report processing --------------------------------------------
 
     def _process_report(self, item) -> None:
-        t_batch, t_oldest, host, ready, cols, trace, t_dispatched = item
+        t_batch, t_oldest, host, ready, cols, trace, t_dispatched, _ = item
         if self.phase_observe is not None:
             self.phase_observe(PHASE_INFLIGHT, time.perf_counter() - t_dispatched)
         self._note_outcome(skipped=False)

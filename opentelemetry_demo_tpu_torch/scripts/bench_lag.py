@@ -52,6 +52,8 @@ def main(argv: list[str] | None = None) -> dict:
         "batches": stats["batches"],
         "spans": stats["spans"],
         "reports_skipped": stats["reports_skipped"],
+        "pumps_caught_up": stats["pumps_caught_up"],
+        "reports_same_pump": stats["reports_same_pump"],
     }
     # The paired-probe fields: lag less the round trip of a one-scalar
     # fetch made beside each harvest.

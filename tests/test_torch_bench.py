@@ -16,7 +16,8 @@ modules against ``scripts/``.
   small knobs, equal but for the named differences;
 - no failure is swallowed: a leg that raises ends ``main``, and a
   subprocess leg that exits 1 raises with its stderr;
-- the scripts: ``bench_lag``'s line has the reference's keys,
+- the scripts: ``bench_lag``'s line has the reference's keys and, after
+  ``reports_skipped``, the port's two pump counters,
   ``bench_ingest`` prints the reference's rows (and ``--raw`` runs),
   ``profile_step`` and ``profile_chain`` print the reference's rows.
 """
@@ -229,6 +230,10 @@ def test_no_card_no_run(monkeypatch):
 # -- the scripts ---------------------------------------------------------------
 
 
+# The port's counters of how deep the pump pipelines (``PipelineStats``).
+PUMP_COUNTERS = ("pumps_caught_up", "reports_same_pump")
+
+
 def test_bench_lag_line_has_the_references_keys(monkeypatch, capsys):
     ref = _load("reference_bench_lag", ROOT / "scripts" / "bench_lag.py")
     monkeypatch.setattr("sys.argv", ["bench_lag.py", "--seconds", "0.5"])
@@ -236,7 +241,11 @@ def test_bench_lag_line_has_the_references_keys(monkeypatch, capsys):
     want = _last_json(capsys.readouterr().out)
     got = bench_lag.main(["--seconds", "0.5", "--device", "cpu"])
     assert _last_json(capsys.readouterr().out) == got
-    assert list(got) == list(want)
+    keys = list(want)
+    at = keys.index("reports_skipped") + 1
+    assert list(got) == keys[:at] + list(PUMP_COUNTERS) + keys[at:]
+    # The paced loop pumps after each submit: every pump is caught up.
+    assert got["pumps_caught_up"] == got["reports_same_pump"] == got["batches"]
     assert got["metric"] == "detection_lag_p99" and got["batches"] > 0
 
 

@@ -11,6 +11,11 @@
   ``discard_pending`` and ``stats``.
 - ``spine_overlap=False`` makes every take wait, as in the reference,
   and leaves state and reports bit-identical to overlap on.
+- How deep the pump pipelines across its own calls: a caught-up pump
+  (its take left no rows) reads its own batch's report before it
+  returns; a backlogged one keeps the overlap-hit take and one report in
+  flight; the way from one to the other skips no report; the async
+  harvester and a positive harvest interval keep their cadence.
 - On the card (``gpu``): the same bit-identity, with a spin kernel ahead
   of each step so copies land behind running steps, and the async
   harvester under ``drain``.
@@ -32,6 +37,7 @@ from opentelemetry_demo_tpu.runtime import tensorize as jtz
 from opentelemetry_demo_tpu.runtime.pipeline import DetectorPipeline as JDetectorPipeline
 from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
 from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
+from opentelemetry_demo_tpu_torch.runtime import selftrace
 from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
 from opentelemetry_demo_tpu_torch.runtime.spine import DevicePutSpine, SpineError, slot_views
 from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanColumns, SpanTensorizer
@@ -406,6 +412,141 @@ def test_drain_flushes_staged_batches():
     assert pipe.stats.batches == 5 and pipe.stats.spans == 5 * 128
     assert pipe.spine_stats()["puts_total"] == 5
     pipe.close()
+
+
+def _pump_pipe(**kw):
+    """A CPU pipeline of width 256 whose ``on_report`` lists each report's
+    timebase and the thread that read it."""
+    det = AnomalyDetector(DetectorConfig(**SMALL), device="cpu")
+    seen: list[tuple[float, str]] = []
+    pipe = DetectorPipeline(
+        det, on_report=lambda t, r, f: seen.append((t, threading.current_thread().name)),
+        batch_size=256, **kw,
+    )
+    return pipe, seen
+
+
+def _in_flight(pipe) -> int:
+    with pipe._inflight_lock:
+        return len(pipe._inflight)
+
+
+@pytest.mark.parametrize("spine_ring", [2, 0])
+def test_a_caught_up_pump_reads_its_own_batch_before_it_returns(spine_ring):
+    """Each pump takes everything queued (200 rows, width 256): before it
+    returns, its own batch's report has reached ``on_report``, and its
+    ``spine_wait`` (spine on, overlap on) and ``inflight`` were observed
+    inside the call. Nothing is left staged or in flight."""
+    events: list[tuple[str, float]] = []
+    pipe, seen = _pump_pipe(
+        spine_ring=spine_ring, phase_observe=lambda p, dt: events.append((p, time.perf_counter()))
+    )
+    rng = np.random.default_rng(3)
+    want = {selftrace.PHASE_INFLIGHT} | ({selftrace.PHASE_SPINE_WAIT} if spine_ring else set())
+    try:
+        for k in range(4):
+            pipe.submit_columns(make_columns(rng, 200))
+            t0 = time.perf_counter()
+            pipe.pump(float(k))
+            t1 = time.perf_counter()
+            assert [t for t, _ in seen] == [float(i) for i in range(k + 1)]
+            assert want <= {p for p, t in events if t0 <= t <= t1}
+            assert _in_flight(pipe) == 0
+            assert spine_ring == 0 or pipe._spine.pending() == 0
+        assert pipe.stats.pumps_caught_up == 4 and pipe.stats.reports_same_pump == 4
+        assert pipe.stats.reports_skipped == 0
+    finally:
+        pipe.close()
+
+
+def test_a_backlogged_pump_keeps_one_report_in_flight_and_the_overlap_take(monkeypatch):
+    """Rows left after every take: after the first pump (card idle, a
+    waiting take) each take is the overlap-hit one (``wait=False``), one
+    report stays in flight, and no pump reads a report it dispatched."""
+    waits = _spy_waits(monkeypatch, DevicePutSpine)
+    pipe, seen = _pump_pipe(spine_ring=2)
+    rng = np.random.default_rng(4)
+    for _ in range(6):
+        pipe.submit_columns(make_columns(rng, 256))
+    try:
+        for k in range(4):
+            pipe.pump(float(k))
+            assert _in_flight(pipe) == 1
+            # Let the stager finish, so the next take finds the copy done.
+            for staged in list(pipe._spine._staged):
+                assert staged.ready.wait(10.0)
+        assert waits[0] is True and waits[1:] and not any(waits[1:])
+        assert pipe.spine_stats()["overlap_hits"] >= 1
+        assert len(seen) == pipe.stats.batches - 1
+        assert pipe.stats.pumps_caught_up == 0 and pipe.stats.reports_same_pump == 0
+        pipe.drain()
+        assert [t for t, _ in seen] == sorted(t for t, _ in seen) and len(seen) == 6
+        assert pipe.stats.reports_skipped == 0
+    finally:
+        pipe.close()
+
+
+def test_from_backlogged_to_caught_up_no_report_is_skipped():
+    """One report in flight and two batches staged (the stager held, so
+    the overlap takes missed) when the last rows are taken: the caught-up
+    pump dispatches both and its own, reading the oldest first to keep at
+    most two in flight, and ends with every report read."""
+    pipe, seen = _pump_pipe(spine_ring=2)
+    gate = threading.Event()
+    pack = pipe._spine.tensorizer.pack_columns_into
+    packs: list[int] = []
+
+    def held_pack(*a, **kw):
+        packs.append(1)
+        if len(packs) > 1:
+            assert gate.wait(10.0)
+        return pack(*a, **kw)
+
+    pipe._spine.tensorizer.pack_columns_into = held_pack
+    rng = np.random.default_rng(5)
+    for _ in range(4):
+        pipe.submit_columns(make_columns(rng, 256))
+    try:
+        for k in range(3):
+            pipe.pump(float(k))
+        assert _in_flight(pipe) == 1 and pipe._spine.pending() == 2 and not seen
+        gate.set()
+        pipe.pump(3.0)
+        assert [t for t, _ in seen] == [0.0, 1.0, 2.0, 3.0]
+        assert _in_flight(pipe) == 0 and pipe._spine.pending() == 0
+        assert pipe.stats.reports_skipped == 0 and pipe.stats.batches == 4
+        # Batches 1-3 went in the last pump and were read there.
+        assert pipe.stats.pumps_caught_up == 1 and pipe.stats.reports_same_pump == 3
+    finally:
+        gate.set()
+        pipe.close()
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(spine_ring=2, harvest_async=True), dict(spine_ring=0, harvest_interval_s=3600.0)]
+)
+def test_the_async_harvester_and_a_harvest_interval_keep_their_cadence(kw):
+    """Caught-up input with the async harvester (it reads every report on
+    its own thread) or a harvest interval no pump reaches (the pumps read
+    none; of three, the oldest is skipped): no pump takes the caught-up
+    branch, and the drain reads what is left."""
+    pipe, seen = _pump_pipe(**kw)
+    rng = np.random.default_rng(6)
+    try:
+        for k in range(3):
+            pipe.submit_columns(make_columns(rng, 200))
+            pipe.pump(float(k))
+        if "harvest_interval_s" in kw:
+            assert not seen and _in_flight(pipe) == 2
+        pipe.drain()
+        assert pipe.stats.pumps_caught_up == 0 and pipe.stats.reports_same_pump == 0
+        if "harvest_async" in kw:
+            assert pipe.stats.reports_skipped == 0 and len(seen) == 3
+            assert {name for _, name in seen} == {"report-harvester"}
+        else:
+            assert pipe.stats.reports_skipped == 1 and [t for t, _ in seen] == [1.0, 2.0]
+    finally:
+        pipe.close()
 
 
 def test_dispatch_against_state_readers_under_the_dispatch_lock():
