@@ -33,8 +33,10 @@ pass):
   = every batch); ``ANOMALY_HARVEST_ASYNC=1`` fetches on a side thread
 - ``ANOMALY_ADAPTIVE_BATCH``  adaptive dispatch-width controller
   (default 1 = on): widens batches in pow2 steps when report readback
-  can't keep pace, bounding the skip rate under load spikes; set 0 for
-  a fixed width. Every ladder width runs once in the background at boot
+  can't keep pace, bounding the skip rate under load spikes, and sizes a
+  take that finds more than a batch pending to the ladder width that
+  holds the backlog; set 0 for a fixed width. Every ladder width runs
+  once in the background at boot
 - ``ANOMALY_PUMP_INTERVAL_S``  batch cadence (default 0.05 — the <100ms
                                detection-lag budget spends half on batching)
 - ``FLAGD_FILE``             flagd-schema JSON path (hot-reloaded)

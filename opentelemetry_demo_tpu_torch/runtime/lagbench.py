@@ -101,6 +101,7 @@ def measure_lag(
     base_spans = pipe.stats.spans
     base_skipped = pipe.stats.reports_skipped
     base_caught_up = pipe.stats.pumps_caught_up
+    base_widened = pipe.stats.pumps_widened
     base_same_pump = pipe.stats.reports_same_pump
 
     paced_loop(seconds, i)
@@ -114,9 +115,11 @@ def measure_lag(
         "batches": batches,
         "spans": pipe.stats.spans - base_spans,
         "reports_skipped": skipped,
-        # Pumps that found their input caught up, and reports read in the
-        # pump that dispatched them (``pipeline.PipelineStats``).
+        # Pumps that found their input caught up, takes the backlog
+        # widened, and reports read in the pump that dispatched them
+        # (``pipeline.PipelineStats``).
         "pumps_caught_up": pipe.stats.pumps_caught_up - base_caught_up,
+        "pumps_widened": pipe.stats.pumps_widened - base_widened,
         "reports_same_pump": pipe.stats.reports_same_pump - base_same_pump,
         "skip_rate": round(skipped / batches, 4) if batches else None,
         "final_batch_width": pipe.batch_width,

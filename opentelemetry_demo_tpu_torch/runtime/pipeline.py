@@ -41,7 +41,12 @@ Device-put spine (``spine_ring`` > 0, ``runtime.spine``): pack and copy
 move off the pump thread onto a stager working a ring of pinned slots,
 so batch *k+1*'s copy overlaps batch *k*'s step. Adaptive batching
 widens the dispatch width along a power-of-two ladder while reports are
-being skipped, and narrows it back once they are not.
+being skipped, and narrows it back once they are not. With it on, a
+take also follows the backlog: one that finds more than a base width
+pending takes the smallest ladder width that holds it (at most the
+ladder's top, never below the controller's width), so a backlog goes
+in one wider batch instead of one base width a pump. That width is the
+take's alone: the controller's state is not touched.
 
 Detector state is written only under ``_dispatch_lock``: dispatch, a
 checkpoint's copy-out (``runtime.checkpoint.save``) and the keyspace
@@ -202,6 +207,8 @@ class PipelineStats:
     # read in the pump call that dispatched them (module doc).
     pumps_caught_up: int = 0
     reports_same_pump: int = 0
+    # Takes whose width the backlog raised above the controller's.
+    pumps_widened: int = 0
 
     def lag_p99_ms(self) -> float:
         if not self.lag_ms:
@@ -319,6 +326,9 @@ class DetectorPipeline:
         self._width = batch_size
         self._max_width = batch_size * _pow2_ceil(max(int(max_batch_growth), 1))
         self._adapt_lock = threading.Lock()
+        # The width of the batch being dispatched, while history_capture
+        # runs (None otherwise): what batch_width reads there.
+        self._dispatch_width: int | None = None
         self._adapt_events = 0
         self._adapt_skips = 0
         self._adapt_clean = 0
@@ -656,13 +666,16 @@ class DetectorPipeline:
     def pump(self, t_now: float | None = None) -> None:
         """Form at most one batch and dispatch it.
 
-        A caught-up pump (the take left no rows pending, the harvest
-        synchronous and read every pump) dispatches every staged batch
-        and reads every report before it returns; a backlogged one
-        leaves the newest step in flight and reads one report (module
-        doc). Callers drive wall time or a virtual clock; without
-        ``t_now`` the caller's last timebase is reused, so a virtual-time
-        stream never mixes in ``time.monotonic()``.
+        With adaptive batching a take that finds more than a base width
+        pending is as wide as the smallest ladder width that holds the
+        backlog, up to the ladder's top. A caught-up pump (the take left
+        no rows pending, the harvest synchronous and read every pump)
+        dispatches every staged batch and reads every report before it
+        returns; a backlogged one leaves the newest step in flight and
+        reads one report (module doc). Callers drive wall time or a
+        virtual clock; without ``t_now`` the caller's last timebase is
+        reused, so a virtual-time stream never mixes in
+        ``time.monotonic()``.
         """
         t0 = time.perf_counter()
         self._pump_seq += 1
@@ -689,7 +702,7 @@ class DetectorPipeline:
                 self.stats.dropped_disabled += self._spine.discard_pending()
             self._admission_update(0)
             return
-        width = self.batch_width
+        width = self._controller_width()
         with self._pending_lock:
             rows_avail = self._pending_rows
         # Draining below the low watermark reopens the gate, and an idle
@@ -708,7 +721,8 @@ class DetectorPipeline:
             self._maybe_sync_harvest(keep=0)
             return
         with self._pending_lock:
-            budget = width
+            take = self._take_width(width, self._pending_rows)
+            budget = take
             parts: list[SpanColumns] = []
             t_oldest = None
             while self._pending and budget:
@@ -732,6 +746,8 @@ class DetectorPipeline:
         # with, so this call finishes what it formed (module doc).
         caught_up = rows_after == 0 and not self.harvest_async and self.harvest_interval_s <= 0
         if parts:
+            if take > width:
+                self.stats.pumps_widened += 1
             cols = SpanColumns.concat(parts)
             self._capture_candidates(cols)
             # The sampling gate: None rides the path for unsampled batches.
@@ -743,14 +759,14 @@ class DetectorPipeline:
                     if caught_up:
                         self._make_room()
                     self._pump_spine(force_wait=True)
-                self._spine.stage(cols, width, t_now, t_oldest, trace=trace)
+                self._spine.stage(cols, take, t_now, t_oldest, trace=trace)
             else:
                 if caught_up:
                     self._make_room()
-                batch = self.tensorizer.pack_columns(cols, width=width)
+                batch = self.tensorizer.pack_columns(cols, width=take)
                 self._dispatch_batch(
                     lambda: self.detector.observe_packed(batch, t_now),
-                    t_now, t_oldest, cols, batch.num_valid, trace=trace,
+                    t_now, t_oldest, cols, batch.num_valid, take, trace=trace,
                 )
         if caught_up:
             self._finish_caught_up(dispatched=bool(parts))
@@ -792,14 +808,20 @@ class DetectorPipeline:
             pass
 
     def _dispatch_batch(
-        self, step: Callable[[], torch.Tensor], t_now, t_oldest, cols, n_valid: int, trace=None
+        self, step: Callable[[], torch.Tensor], t_now, t_oldest, cols, n_valid: int, width: int,
+        trace=None,
     ) -> None:
-        """Run ``step`` (one detector step, returning the flat report)
-        under ``_dispatch_lock`` — the one place the pump advances the
-        state — and start the report's copy to pinned host memory."""
+        """Run ``step`` (one detector step over a batch ``width`` lanes
+        wide, returning the flat report) under ``_dispatch_lock`` — the
+        one place the pump advances the state — and start the report's
+        copy to pinned host memory."""
         self._last_dispatch = time.monotonic()
         if self.history_capture is not None:
-            self.history_capture(cols, t_now)
+            self._dispatch_width = width
+            try:
+                self.history_capture(cols, t_now)
+            finally:
+                self._dispatch_width = None
         t0 = time.perf_counter()
         with self._dispatch_lock:
             self._step_stream = _current_stream(self._device)
@@ -871,7 +893,8 @@ class DetectorPipeline:
                 self._spine.release(staged)
 
         self._dispatch_batch(
-            step, staged.t_now, staged.t_oldest, staged.cols, staged.cols.rows, trace=staged.trace
+            step, staged.t_now, staged.t_oldest, staged.cols, staged.cols.rows, staged.width,
+            trace=staged.trace,
         )
         return True
 
@@ -954,8 +977,24 @@ class DetectorPipeline:
 
     @property
     def batch_width(self) -> int:
-        """Current dispatch width (batch_size unless adaptive grew it)."""
+        """The dispatch width: inside ``history_capture`` the width of the
+        batch being dispatched, elsewhere the controller's (batch_size
+        unless adaptive grew it)."""
+        width = self._dispatch_width
+        return width if width is not None else self._controller_width()
+
+    def _controller_width(self) -> int:
         return self._width if self.adaptive_batching else self.tensorizer.batch_size
+
+    def _take_width(self, width: int, rows: int) -> int:
+        """The width of a take with ``rows`` pending and the controller at
+        ``width``: with adaptive batching and more than a base width
+        pending, the smallest ladder width that holds the rows, capped at
+        the ladder's top and never below ``width``; else ``width``."""
+        base = self.tensorizer.batch_size
+        if not self.adaptive_batching or rows <= base:
+            return width
+        return max(width, min(base * _pow2_ceil(-(-rows // base)), self._max_width))
 
     def warm_widths(self) -> None:
         """Run one step at every ladder width (adaptive mode only), so an

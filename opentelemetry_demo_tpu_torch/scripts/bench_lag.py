@@ -53,6 +53,7 @@ def main(argv: list[str] | None = None) -> dict:
         "spans": stats["spans"],
         "reports_skipped": stats["reports_skipped"],
         "pumps_caught_up": stats["pumps_caught_up"],
+        "pumps_widened": stats["pumps_widened"],
         "reports_same_pump": stats["reports_same_pump"],
     }
     # The paired-probe fields: lag less the round trip of a one-scalar

@@ -344,8 +344,9 @@ DAEMON_KNOBS: dict[str, tuple[str, object, str]] = {
     "ANOMALY_ADAPTIVE_BATCH": (
         "int", 1,
         "adaptive dispatch-width controller (1 = on): widens batches "
-        "in pow2 steps when readback can't keep pace; the width "
-        "ladder precompiles in the background at boot",
+        "in pow2 steps when readback can't keep pace, and widens a "
+        "take to the ladder width that holds the pending backlog; "
+        "the width ladder precompiles in the background at boot",
     ),
     "ANOMALY_NUM_SERVICES": (
         "int", -1,

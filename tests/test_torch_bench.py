@@ -231,7 +231,7 @@ def test_no_card_no_run(monkeypatch):
 
 
 # The port's counters of how deep the pump pipelines (``PipelineStats``).
-PUMP_COUNTERS = ("pumps_caught_up", "reports_same_pump")
+PUMP_COUNTERS = ("pumps_caught_up", "pumps_widened", "reports_same_pump")
 
 
 def test_bench_lag_line_has_the_references_keys(monkeypatch, capsys):
@@ -246,6 +246,7 @@ def test_bench_lag_line_has_the_references_keys(monkeypatch, capsys):
     assert list(got) == keys[:at] + list(PUMP_COUNTERS) + keys[at:]
     # The paced loop pumps after each submit: every pump is caught up.
     assert got["pumps_caught_up"] == got["reports_same_pump"] == got["batches"]
+    assert got["pumps_widened"] == 0
     assert got["metric"] == "detection_lag_p99" and got["batches"] > 0
 
 

@@ -428,10 +428,12 @@ def test_lagbench_at_a_small_size_returns_the_reference_keys():
     out = lagbench.measure_lag(rate=4000.0, seconds=0.4, batch=64, config=DetectorConfig(**SMALL), device="cpu")
     ref = jlagbench.measure_lag(rate=4000.0, seconds=0.2, batch=64, config=JDetectorConfig(**SMALL))
     # The port adds its pump counters: each paced pump takes the one
-    # chunk queued, so each is caught up and reads its own report.
-    assert set(out) == set(ref) | {"pumps_caught_up", "reports_same_pump"}
+    # chunk queued, so each is caught up, reads its own report and is
+    # never widened.
+    assert set(out) == set(ref) | {"pumps_caught_up", "pumps_widened", "reports_same_pump"}
     assert out["batches"] > 0 and out["spans"] == out["batches"] * 64
     assert out["pumps_caught_up"] == out["reports_same_pump"] == out["batches"]
+    assert out["pumps_widened"] == 0
     assert 0.0 < out["p99_ms"] < 10_000.0 and out["rtt_pairs"] > 0
     cols_a = lagbench.make_columns(np.random.default_rng(0), 32)
     cols_b = jlagbench.make_columns(np.random.default_rng(0), 32)

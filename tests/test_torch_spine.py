@@ -16,6 +16,11 @@
   returns; a backlogged one keeps the overlap-hit take and one report in
   flight; the way from one to the other skips no report; the async
   harvester and a positive harvest interval keep their cadence.
+- A backlogged take's width (adaptive batching): the smallest ladder
+  width that holds the backlog, up to the ladder's top, with the
+  controller's width and hold untouched, spine on and off; the state
+  after the drain equals the reference detector stepped over the
+  batches the port dispatched.
 - On the card (``gpu``): the same bit-identity, with a spin kernel ahead
   of each step so copies land behind running steps, and the async
   harvester under ``drain``.
@@ -610,6 +615,82 @@ def test_staged_args_equal_the_inline_args():
         got = b.staged_args(buf, t)
         for x, y in zip(want, got):
             assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+BASE = 64
+
+
+def _backlog_case(case: str):
+    """(pipeline knobs, rows of each chunk queued before the first pump,
+    pumps before the drain, the widths dispatched, takes widened)."""
+    return {
+        # 3 × base pending: one take at 4 × base.
+        "backlog": (dict(), [BASE] * 3, 1, [4 * BASE], 1),
+        # One base width pending: the base width.
+        "one_width": (dict(), [BASE], 1, [BASE], 0),
+        # Adaptive batching off: one base width a pump.
+        "adaptive_off": (dict(adaptive_batching=False), [BASE] * 3, 3, [BASE] * 3, 0),
+        # 6 × base in one chunk over a 4 × top: the top, then the 2 × base
+        # left, its tail requeued with its enqueue time.
+        "over_the_top": (dict(max_batch_growth=4), [6 * BASE], 2, [4 * BASE, 2 * BASE], 2),
+    }[case]
+
+
+@pytest.mark.parametrize("spine_ring", [0, 2])
+@pytest.mark.parametrize("case", ["backlog", "one_width", "adaptive_off", "over_the_top"])
+def test_a_backlogged_take_is_as_wide_as_its_backlog(case, spine_ring):
+    """Each take's width follows the rows pending at it; ``batch_width``
+    read inside ``history_capture`` is the dispatched batch's; the
+    controller's width is untouched, so a sub-width batch after a
+    widened take is not held; every row goes once, in order; and after
+    the drain the sketches and step count equal the reference detector
+    stepped over the same batches at the same widths."""
+    knobs, chunks, pumps, widths, widened = _backlog_case(case)
+    knobs = dict(dict(adaptive_batching=True, max_batch_growth=8), **knobs)
+    pipe = DetectorPipeline(
+        AnomalyDetector(DetectorConfig(**SMALL), device="cpu"),
+        batch_size=BASE, spine_ring=spine_ring, **knobs,
+    )
+    seen: list[tuple[int, float, SpanColumns]] = []
+    pipe.history_capture = lambda cols, t: seen.append(
+        (pipe.batch_width, t, SpanColumns(*(np.array(c) for c in cols)))
+    )
+    rng = np.random.default_rng(12)
+    sent = [make_columns(rng, n) for n in chunks]
+    try:
+        for cols in sent:
+            pipe.submit_columns(cols)
+        with pipe._pending_lock:
+            t_enq = pipe._pending[-1][1]
+        for k in range(pumps):
+            pipe.pump(0.1 * k)
+            if case == "over_the_top" and k == 0:
+                with pipe._pending_lock:
+                    assert pipe._pending_rows == 2 * BASE and pipe._pending[0][1] == t_enq
+        assert [w for w, _, _ in seen] == widths
+        assert [c.rows for _, _, c in seen] == [min(w, sum(chunks)) for w in widths]
+        assert pipe.stats.pumps_widened == widened and pipe.pending_rows() == 0
+        assert pipe._width == BASE and pipe.batch_width == BASE
+        # No hold: the controller never left the base width.
+        late = make_columns(rng, BASE // 2)
+        sent.append(late)
+        pipe.submit_columns(late)
+        pipe.pump(0.1 * pumps)
+        assert len(seen) == len(widths) + 1 and seen[-1][0] == BASE
+        pipe.drain()
+    finally:
+        pipe.close()
+    got = np.concatenate([c.trace_key for _, _, c in seen])
+    assert np.array_equal(got, np.concatenate([c.trace_key for c in sent]))
+
+    ref = JAnomalyDetector(JDetectorConfig(**SMALL))
+    tz = jtz.SpanTensorizer(num_services=SMALL["num_services"], batch_size=BASE)
+    for width, t, cols in seen:
+        ref.observe_packed(tz.pack_columns(jtz.SpanColumns(*cols), width=width), t)
+    state = pipe.detector.state
+    for name in ("hll_bank", "cms_bank", "span_total", "obs_batches", "step_idx"):
+        assert np.array_equal(getattr(state, name).cpu().numpy(), np.asarray(getattr(ref.state, name))), name
+    assert int(state.step_idx) == len(seen) == pipe.stats.batches
 
 
 # -- on the card ---------------------------------------------------------
