@@ -1287,7 +1287,7 @@ def phase_native_e2e(device, impl, width, n_warm, n_fault, bodies_per_batch, res
     print(f"native e2e B={width} impl={impl}: {n} batches in {spine['wall']:.3f} s = {rate:.0f} spans/s "
           f"(decode {spine['decode_s']:.3f} s with {threads} threads, tensorize {spine['tensorize_s']:.3f} s), "
           f"lag p99 {rec['lag_p99_ms']:.3f} ms; spine puts {st['puts_total']}, overlap hits "
-          f"{st['overlap_hits']} misses {st['overlap_misses']} (stager {st['stage_s']:.3f} s, pump waited "
+          f"{st['overlap_hits']} misses {st['overlap_misses']} (pack + copy issue {st['stage_s']:.3f} s, puts blocked "
           f"{st['take_wait_s']:.3f} s); reports skipped {pipe.stats.reports_skipped}; "
           f"{kernel} launches {spine['launches']}; state == the spine-off sync twin's "
           f"({rec['twin']['spans_per_s']:.0f} spans/s, lag p99 {rec['twin']['lag_p99_ms']:.3f} ms); "
@@ -1307,7 +1307,7 @@ def phase_native_e2e(device, impl, width, n_warm, n_fault, bodies_per_batch, res
 def phase_spine_guard(device, width=2048, n=16, spin_cycles=40_000_000):
     """The spine's second guard under load: a spin kernel (~20 ms) queued
     on the dispatch stream ahead of each step keeps step k running while
-    the stager issues the copy for batch k + depth into the same device
+    the pump issues the copy for batch k + depth into the same device
     slot. Without the side stream's wait on the step's event that copy
     would overwrite lanes step k has yet to read. At ring depths 1 and 2,
     with the async harvester, the final state must equal a spine-off

@@ -69,9 +69,10 @@ pass):
   and the device step): ``ANOMALY_SPINE_RING`` (pre-allocated
   host staging buffers, default 2 = double buffering; 0 = spine off,
   pack+put inline on the pump thread), ``ANOMALY_SPINE_OVERLAP``
-  (0: every take waits for the stager; anomaly_spine_put_overlap_ratio
-  reports the hit rate, which falls toward 0 under light traffic, where
-  a caught-up pump waits for its own batch's copy on purpose),
+  (0: the pump waits on the host for each put's copy;
+  anomaly_spine_put_overlap_ratio reports the share of copies issued
+  while the last step still ran, which falls toward 0 under light
+  traffic, where a caught-up pump finds the card idle),
   ``ANOMALY_SPINE_CHUNK_ROWS`` (pack copy block rows, 0 = whole batch)
 - Hot-standby replication knobs (one registry:
   ``utils.config.REPLICATION_KNOBS``; engine: ``runtime.replication``):
@@ -932,9 +933,10 @@ class DetectorDaemon:
         except ConfigError as e:
             raise SystemExit(str(e)) from e
         # Device-put spine (knob registry: utils.config.SPINE_KNOBS;
-        # engine: runtime.spine): staging ring + stager thread so the
-        # host→device put of batch k+1 overlaps batch k's in-flight
-        # step. Ring 0 restores the inline pack+put path.
+        # engine: runtime.spine): a staging ring the pump thread packs
+        # and copies through on a side stream, so the host→device put of
+        # batch k+1 overlaps batch k's in-flight step. Ring 0 restores
+        # the inline pack+put path.
         try:
             sp = spine_config()
         except ConfigError as e:

@@ -6,9 +6,8 @@ its input:
 
 - caught up (its take left no rows pending, with a synchronous harvest
   read every pump): the pump finishes in the same call what it formed.
-  It dispatches every staged batch, its own last, waiting only for each
-  copy to be issued, then reads every report in flight, oldest first, so
-  the next pump finds the card idle;
+  It dispatches its batch, then reads every report in flight, oldest
+  first, so the next pump finds the card idle;
 - backlogged (rows remain after the take): the pump keeps one report in
   flight. Batch *k* is dispatched before batch *k-1*'s report is read,
   overlapping host tensorization, the host→device copy and the step.
@@ -37,9 +36,10 @@ sustained saturation a deterministic brownout ladder head-samples
 OK-lane rows (1/2, 1/4, …) so detection stays live. A per-tenant token
 bucket (``tenant_quota_rows_s``) clips a noisy tenant ahead of all that.
 
-Device-put spine (``spine_ring`` > 0, ``runtime.spine``): pack and copy
-move off the pump thread onto a stager working a ring of pinned slots,
-so batch *k+1*'s copy overlaps batch *k*'s step. Adaptive batching
+Device-put spine (``spine_ring`` > 0, ``runtime.spine``): the pump packs
+each batch into a ring of pinned slots and copies it to the card on a
+side stream, so batch *k+1*'s copy overlaps batch *k*'s step; each pump
+forms, puts and dispatches its batch in the same call. Adaptive batching
 widens the dispatch width along a power-of-two ladder while reports are
 being skipped, and narrows it back once they are not. With it on, a
 take also follows the backlog: one that finds more than a base width
@@ -81,16 +81,16 @@ behind the steps in flight. The query plane reads state through the
 same snapshot.
 
 flagd gating (``flags``): while ``anomalyDetectorEnabled`` evaluates
-false, each pump drops the pending queue and the spine's staged batches
-(``stats.dropped_disabled``) and dispatches nothing, so the state holds.
-``anomalyDetectorZThreshold`` re-derives each harvested report's flags
-from its z-scores when it differs from the config's ``z_threshold``; the
-CUSUM alarms keep their own thresholds.
+false, each pump drops the pending queue (``stats.dropped_disabled``)
+and dispatches nothing, so the state holds. ``anomalyDetectorZThreshold``
+re-derives each harvested report's flags from its z-scores when it
+differs from the config's ``z_threshold``; the CUSUM alarms keep their
+own thresholds.
 
 History capture (``history_capture``, a ``runtime.history.HistoryWriter``'s
 ``capture`` or None): every dispatched batch's host columns and its
 timebase, handed over just before the step on every route (the inline
-pack, the spine's staged batches). The callee copies and enqueues; the
+pack, the spine's slots). The callee copies and enqueues; the
 pump pays one copy, never an encode or a disk write.
 """
 
@@ -127,13 +127,14 @@ from .selftrace import (
     PHASE_PUT_WAIT,
     PHASE_REPORT,
     PHASE_SPINE_WAIT,
+    PHASE_STAGE,
     SPAN_DISPATCH,
     SPAN_FLAG,
     SPAN_HARVEST,
     SPAN_PUT,
     SPAN_STAGE,
 )
-from .spine import DevicePutSpine, pinned_device
+from .spine import DevicePutSpine, SlotPut, pinned_device
 from .tensorize import SpanColumns, SpanRecord, SpanTensorizer
 
 FLAG_ENABLED = "anomalyDetectorEnabled"
@@ -311,7 +312,6 @@ class DetectorPipeline:
                 depth=spine_ring,
                 overlap=spine_overlap,
                 chunk_rows=spine_chunk_rows,
-                phase_observe=phase_observe,
             )
         self.max_wait_s = max_wait_s
         # Report readback cadence: 0 reads a report every pump; a
@@ -670,12 +670,11 @@ class DetectorPipeline:
         pending is as wide as the smallest ladder width that holds the
         backlog, up to the ladder's top. A caught-up pump (the take left
         no rows pending, the harvest synchronous and read every pump)
-        dispatches every staged batch and reads every report before it
-        returns; a backlogged one leaves the newest step in flight and
-        reads one report (module doc). Callers drive wall time or a
-        virtual clock; without ``t_now`` the caller's last timebase is
-        reused, so a virtual-time stream never mixes in
-        ``time.monotonic()``.
+        dispatches its batch and reads every report before it returns; a
+        backlogged one leaves the newest step in flight and reads one
+        report (module doc). Callers drive wall time or a virtual clock;
+        without ``t_now`` the caller's last timebase is reused, so a
+        virtual-time stream never mixes in ``time.monotonic()``.
         """
         t0 = time.perf_counter()
         self._pump_seq += 1
@@ -696,10 +695,6 @@ class DetectorPipeline:
                 self.stats.dropped_disabled += self._pending_rows
                 self._pending.clear()
                 self._pending_rows = 0
-            if self._spine is not None:
-                # Staged batches not yet dispatched are pending work
-                # too: the off switch drops them with the queue.
-                self.stats.dropped_disabled += self._spine.discard_pending()
             self._admission_update(0)
             return
         width = self._controller_width()
@@ -752,33 +747,21 @@ class DetectorPipeline:
             self._capture_candidates(cols)
             # The sampling gate: None rides the path for unsampled batches.
             trace = self._selftrace.begin() if self._selftrace is not None else None
-            if self._spine is not None:
-                # The ring is the backpressure: past ``depth`` staged
-                # batches the pump dispatches the head, waiting for it.
-                while self._spine.pending() >= self._spine.depth:
-                    if caught_up:
-                        self._make_room()
-                    self._pump_spine(force_wait=True)
-                self._spine.stage(cols, take, t_now, t_oldest, trace=trace)
-            else:
-                if caught_up:
-                    self._make_room()
-                batch = self.tensorizer.pack_columns(cols, width=take)
-                self._dispatch_batch(
-                    lambda: self.detector.observe_packed(batch, t_now),
-                    t_now, t_oldest, cols, batch.num_valid, take, trace=trace,
-                )
+            step, n_valid = self._put(cols, take, t_now, trace)
+            self._dispatch_batch(step, t_now, t_oldest, cols, n_valid, take, trace=trace)
         if caught_up:
-            self._finish_caught_up(dispatched=bool(parts))
+            # At most one report was in flight before this pump's
+            # dispatch (every synchronous pump ends with one or none),
+            # so the dispatch pushed none out unread.
+            if parts:
+                self.stats.pumps_caught_up += 1
+            while self._harvest_one(keep=0):
+                pass
             return
         if not parts:
-            # A batch staged on an earlier pump may be ready now;
-            # otherwise an idle pump still reads a due report.
-            if self._spine is None or not self._pump_spine():
-                self._maybe_sync_harvest(keep=0)
-                return
-        elif self._spine is not None:
-            self._pump_spine()
+            # An idle pump still reads a due report.
+            self._maybe_sync_harvest(keep=0)
+            return
         if self.harvest_async:
             self._harvest_wake.set()
         else:
@@ -788,24 +771,6 @@ class DetectorPipeline:
             with self._pending_lock:
                 keep = 1 if self._pending else 0
             self._maybe_sync_harvest(keep=keep)
-
-    def _finish_caught_up(self, dispatched: bool) -> None:
-        """Dispatch every staged batch, oldest first, waiting only for the
-        stager to issue each copy (the step's stream waits on the copy's
-        event), then read every report in flight, oldest first."""
-        while self._spine is not None and self._spine.pending():
-            self._make_room()
-            dispatched |= self._pump_spine(force_wait=True)
-        if dispatched:
-            self.stats.pumps_caught_up += 1
-        while self._harvest_one(keep=0):
-            pass
-
-    def _make_room(self) -> None:
-        """Read the oldest reports until one is left in flight, so the
-        next dispatch pushes none out unread (at most two ride)."""
-        while self._harvest_one(keep=1):
-            pass
 
     def _dispatch_batch(
         self, step: Callable[[], torch.Tensor], t_now, t_oldest, cols, n_valid: int, width: int,
@@ -853,50 +818,31 @@ class DetectorPipeline:
                 self.stats.reports_skipped += 1
                 self._note_outcome(skipped=True)
 
-    def _pump_spine(self, force_wait: bool = False) -> bool:
-        """Dispatch the oldest staged batch if it can go now.
-
-        With a step in flight only a batch whose copy is done is taken (a
-        batch still copying goes on the next pump); with the card idle,
-        under drain, at the ring bound, with overlap off or from a
-        caught-up pump (``force_wait``) the pump waits for the stager to
-        issue its copy."""
-        with self._inflight_lock:
-            idle = not self._inflight
-        must_wait = (
-            force_wait
-            or not self._spine.overlap
-            or self._harvest_flush
-            or idle
-        )
-        staged = self._spine.take(wait=must_wait)
-        if staged is None:
-            return False
+    def _put(self, cols: SpanColumns, width: int, t_now, trace) -> tuple[Callable[[], torch.Tensor], int]:
+        """Put one batch ``width`` lanes wide on the card: packed inline
+        with the spine off, through a spine slot with it on. Returns the
+        step that reads it (for ``_dispatch_batch``) and its valid rows."""
+        if self._spine is None:
+            batch = self.tensorizer.pack_columns(cols, width=width)
+            return (lambda: self.detector.observe_packed(batch, t_now)), batch.num_valid
+        t0 = time.perf_counter()
+        put = self._spine.put(cols, width)
         if self.phase_observe is not None:
-            # The stager observed the stage itself, on its own thread.
-            self.phase_observe(PHASE_SPINE_WAIT, time.perf_counter() - staged.t_staged)
-            self.phase_observe(PHASE_PUT_WAIT, staged.wait_s)
-        if staged.trace is not None:
-            staged.trace.span(SPAN_STAGE, staged.stage_dur)
-            staged.trace.span(
-                SPAN_PUT, staged.wait_s,
-                attrs=(("overlap.hit", str(int(staged.wait_s == 0.0))),),
-            )
-        device = self._device
+            self.phase_observe(PHASE_STAGE, put.stage_s)
+            self.phase_observe(PHASE_PUT_WAIT, put.wait_s)
+            self.phase_observe(PHASE_SPINE_WAIT, time.perf_counter() - t0)
+        if trace is not None:
+            trace.span(SPAN_STAGE, put.stage_s)
+            trace.span(SPAN_PUT, put.wait_s, attrs=(("overlap.hit", str(int(put.hit))),))
+        return (lambda: self._step_on_slot(put, t_now)), cols.rows
 
-        def step() -> torch.Tensor:
-            try:
-                if staged.copied is not None:
-                    torch.cuda.current_stream(device).wait_event(staged.copied)
-                return self.detector.observe_staged_packed(staged.lanes, staged.t_now)
-            finally:
-                self._spine.release(staged)
-
-        self._dispatch_batch(
-            step, staged.t_now, staged.t_oldest, staged.cols, staged.cols.rows, staged.width,
-            trace=staged.trace,
-        )
-        return True
+    def _step_on_slot(self, put: SlotPut, t_now) -> torch.Tensor:
+        try:
+            if put.copied is not None:
+                torch.cuda.current_stream(self._device).wait_event(put.copied)
+            return self.detector.observe_staged_packed(put.lanes, t_now)
+        finally:
+            self._spine.release(put)
 
     def _maybe_sync_harvest(self, keep: int) -> None:
         """One due-cadence synchronous harvest (no-op in async mode)."""
@@ -912,7 +858,7 @@ class DetectorPipeline:
         # reports dispatched during the drain itself.
         self._harvest_flush = True
         try:
-            while self._pending or (self._spine is not None and self._spine.pending()):
+            while self._pending:
                 self.pump()
             if self.harvest_async:
                 self._drain_async()
@@ -937,10 +883,8 @@ class DetectorPipeline:
             time.sleep(0.005)
 
     def close(self) -> None:
-        """Drain, then stop the spine and the harvester."""
+        """Drain, then stop the harvester."""
         self.drain()
-        if self._spine is not None:
-            self._spine.close()
         if self._harvest_thread is not None:
             self._harvest_stop = True
             self._harvest_wake.set()

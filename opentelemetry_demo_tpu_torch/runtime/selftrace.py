@@ -91,8 +91,9 @@ PHASE_QUEUE_WAIT = "queue_wait"
 # a batch's oldest rows in the pipeline's pending queue (enqueue → the
 # pump's take);
 PHASE_PENDING_WAIT = "pending_wait"
-# a staged batch on the spine's ring (stage → take; ``put_wait`` is the
-# blocking tail of it);
+# a batch's put on the spine (the put's start → the dispatch's start;
+# ``put_wait`` is the part the put blocked on a copy, ``stage`` its pack
+# and copy issue);
 PHASE_SPINE_WAIT = "spine_wait"
 # a dispatched batch's report in flight (dispatch's end → its harvest).
 PHASE_INFLIGHT = "inflight"

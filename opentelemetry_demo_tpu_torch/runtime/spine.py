@@ -1,25 +1,19 @@
 """Device-put spine: a ring of pinned host slots and async copies to the card.
 
 Between the pipeline's batch assembly and the detector step sit a pack
-(pad + hash) and a host→device copy. Without the spine both run on the
-pump thread inside the dispatch tick. The spine moves them onto a
-**stager thread** working through a ring of ``depth`` slots:
+(pad + hash) and a host→device copy. The spine does both on the pump
+thread through a ring of ``depth`` slots, and the copy runs on a side
+CUDA stream, so the host never waits for it:
 
-- ``stage(cols, width, ...)`` (pump thread) queues the assembled columns
-  and returns at once. The stager packs them into slot ``seq % depth``
-  and copies the slot to the card on a side CUDA stream, recording one
-  event behind the copy.
-- ``take(wait=...)`` (pump thread) pops the oldest staged batch. With a
-  step in flight the pump takes only a batch whose copy is done
-  (``event.query()``: an overlap hit); with the card idle, under
-  ``drain()``, or with ``overlap`` off, it waits for the stager (a
-  miss). A miss never blocks the host on the copy: the dispatch stream
-  waits for the copy's event.
-- ``release(staged)`` (pump thread, after the step is enqueued) records
-  an event on the dispatch stream and frees the slot.
+- ``put(cols, width)`` packs the columns into slot ``seq % depth`` and
+  issues the slot's copy to the card on the side stream, recording one
+  event behind the copy. It returns at once (with ``overlap`` off, once
+  the copy is done); the dispatch stream waits for the copy's event.
+- ``release(put)`` (after the step is enqueued) records an event on the
+  dispatch stream behind the step that reads the slot.
 
-With a ``phase_observe`` hook the stager observes each batch's
-``stage`` phase itself, when its pack and copy issue end.
+Nothing stays on the ring between two pump calls: the pump puts,
+dispatches and releases each batch in the same call.
 
 A slot is one pinned int32 host buffer of 8 × B laid out as
 ``AnomalyDetector._args`` lays out a batch, packed in place through
@@ -28,83 +22,58 @@ buffer of the same layout; both are allocated once per slot and width.
 Two guards keep a slot's bytes stable while they are read:
 
 - before a slot's host buffer is repacked, its last copy must be done
-  (the stager waits on the copy's event on the host);
+  (the put waits on the copy's event on the host);
 - before a slot's device buffer is overwritten, the step that read it
   must be done: the side stream waits on the event ``release`` recorded
-  on the dispatch stream. The stager does not start on a slot until the
-  batch that held it has been released or discarded.
+  on the dispatch stream.
 
 The device buffers are allocated on the side stream, never from the
 dispatch stream's pool, whose freed blocks queued steps may still read.
 
 The spine owns no detector state: dispatch, ``checkpoint.save`` and the
 keyspace evictor stay on the one dispatch stream under the pipeline's
-``_dispatch_lock``. On the CPU (``device="cpu"``) the thread and the ring
-work the same, with plain copies and no streams or events.
+``_dispatch_lock``. On the CPU (``device="cpu"``) the ring works the
+same, with plain copies and no streams or events.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
-from collections import deque
 
 import numpy as np
 import torch
 
-from .selftrace import PHASE_STAGE
 from .tensorize import SpanColumns, SpanTensorizer, TensorBatch
 
 
-class SpineError(RuntimeError):
-    """A staging job failed (pack or copy), or the spine closed under
-    it: raised to the dispatcher that takes the batch."""
+class SlotPut:
+    """One batch put on the card: the slot's device lanes, the event
+    behind their copy (None off the card, or once the copy is done), and
+    the put's own seconds: ``stage_s`` packing and issuing the copy,
+    ``wait_s`` blocked on the slot's last copy (and, with ``overlap``
+    off, on this one). ``hit``: the copy was issued while the last step
+    still ran on the card."""
 
+    __slots__ = ("lanes", "copied", "slot", "stage_s", "wait_s", "hit")
 
-class StagedBatch:
-    """One assembled batch riding the spine: host columns in, the slot's
-    device lanes out once the stager has issued the copy.
-
-    ``stage_dur`` and ``wait_s`` are this batch's own pack+copy-issue
-    seconds and the seconds a waiting ``take`` spent on it; ``t_staged``
-    is the ``perf_counter`` of its ``stage`` call. ``trace`` is
-    the batch's sampled self-trace (``runtime.selftrace.BatchTrace``) or
-    None: carried to dispatch, never read on the stager thread."""
-
-    __slots__ = (
-        "cols", "width", "t_now", "t_oldest", "lanes", "copied", "slot",
-        "error", "ready", "stage_dur", "wait_s", "trace", "t_staged",
-    )
-
-    def __init__(self, cols: SpanColumns, width: int, t_now, t_oldest, trace=None):
-        self.cols = cols
-        self.trace = trace
-        self.width = width
-        self.t_now = t_now
-        self.t_oldest = t_oldest
-        self.lanes: torch.Tensor | None = None  # int32 [8 × width] on the device
-        self.copied: "torch.cuda.Event | None" = None
-        self.slot: int | None = None
-        self.error: BaseException | None = None
-        self.ready = threading.Event()
-        self.stage_dur = 0.0
-        self.wait_s = 0.0
-        self.t_staged = time.perf_counter()
-
-    def copy_done(self) -> bool:
-        return self.copied is None or self.copied.query()
+    def __init__(self, lanes: torch.Tensor, copied, slot: int, stage_s: float, wait_s: float, hit: bool):
+        self.lanes = lanes  # int32 [8 × width] on the device
+        self.copied: "torch.cuda.Event | None" = copied
+        self.slot = slot
+        self.stage_s = stage_s
+        self.wait_s = wait_s
+        self.hit = hit
 
 
 class _Slot:
-    __slots__ = ("host", "dev", "copied", "consumed", "owner")
+    __slots__ = ("host", "dev", "copied", "consumed")
 
     def __init__(self):
         self.host: dict[int, tuple[torch.Tensor, TensorBatch]] = {}
         self.dev: dict[int, torch.Tensor] = {}
         self.copied: "torch.cuda.Event | None" = None  # the last copy out of a host buffer
         self.consumed: "torch.cuda.Event | None" = None  # after the last step that read dev
-        self.owner: StagedBatch | None = None  # staged, not yet released
 
 
 def slot_views(buf: torch.Tensor, width: int) -> TensorBatch:
@@ -134,7 +103,7 @@ def pinned_device(device: "torch.device | str") -> torch.device:
 
 
 class DevicePutSpine:
-    """Staging ring + stager thread (see the module doc)."""
+    """The ring of staging slots (see the module doc)."""
 
     def __init__(
         self,
@@ -143,7 +112,6 @@ class DevicePutSpine:
         depth: int = 2,
         overlap: bool = True,
         chunk_rows: int = 0,
-        phase_observe=None,
     ):
         if depth < 1:
             raise ValueError(f"spine ring depth must be >= 1 (got {depth})")
@@ -153,146 +121,94 @@ class DevicePutSpine:
         self.depth = int(depth)
         self.overlap = bool(overlap)
         self.chunk_rows = int(chunk_rows)
-        self.phase_observe = phase_observe
         self._side = torch.cuda.Stream(self.device) if self._cuda else None
         self._slots = [_Slot() for _ in range(self.depth)]
         self._seq = 0
-        self._lock = threading.Lock()
-        self._work = threading.Condition(self._lock)
-        self._jobs: deque[StagedBatch] = deque()
-        self._staged: deque[StagedBatch] = deque()
-        self._stop = False
+        # After the last step released, whichever slot it read.
+        self._last_consumed: "torch.cuda.Event | None" = None
         self.puts_total = 0
-        self.overlap_hits = 0  # take() found the copy already done
-        self.overlap_misses = 0  # take() had to wait for the stager or the copy
+        self.overlap_hits = 0  # copies issued while the last step still ran on the card
+        self.overlap_misses = 0  # copies issued with the card idle (always, off the card)
         self.step_waits = 0  # copies queued behind a step still reading their slot
-        self.stage_s = 0.0  # stager: slot wait + pack + copy issue
-        self.take_wait_s = 0.0  # pump: time blocked in waiting takes
-        self._thread = threading.Thread(target=self._run, name="spine-stager", daemon=True)
-        self._thread.start()
+        self.stage_s = 0.0  # pack + copy issue
+        self.take_wait_s = 0.0  # blocked in puts (``SlotPut.wait_s``)
 
-    # -- pump-thread API ----------------------------------------------
-
-    def stage(self, cols: SpanColumns, width: int, t_now, t_oldest, trace=None) -> None:
-        """Queue one assembled batch for pack + copy. Never blocks: the
-        pump bounds the ring by dispatching the head before staging past
-        ``depth``. ``trace`` rides the staged batch to dispatch."""
-        staged = StagedBatch(cols, int(width), t_now, t_oldest, trace)
-        with self._work:
-            if self._stop:
-                raise SpineError("spine is closed")
-            self._jobs.append(staged)
-            self._staged.append(staged)
-            self._work.notify_all()
-
-    def take(self, wait: bool, timeout: float = 30.0) -> StagedBatch | None:
-        """The oldest staged batch, its copy issued — or None when nothing
-        is staged, or when ``wait`` is False and its copy is not done."""
-        with self._lock:
-            staged = self._staged[0] if self._staged else None
-        if staged is None:
-            return None
-        if staged.ready.is_set() and staged.copy_done():
-            hit = True
-        elif not wait:
-            return None
-        else:
-            hit = False
-            t0 = time.perf_counter()
-            while not staged.ready.wait(0.05):
-                if not self._thread.is_alive():
-                    raise SpineError("the stager thread is dead")
-                if time.perf_counter() - t0 > timeout:
-                    raise SpineError(f"staged batch not ready after {timeout}s (a slot never released)")
-            staged.wait_s = time.perf_counter() - t0
-        with self._work:
-            if self._staged and self._staged[0] is staged:
-                self._staged.popleft()
-            if hit:
-                self.overlap_hits += 1
-            else:
-                self.overlap_misses += 1
-                self.take_wait_s += staged.wait_s
-            self._work.notify_all()
-        if staged.error is not None:
-            self._free(staged)
-            raise SpineError(
-                f"staging failed: {type(staged.error).__name__}: {staged.error}"
-            ) from staged.error
-        return staged
-
-    def release(self, staged: StagedBatch) -> None:
-        """The step that reads ``staged.lanes`` is enqueued: record an
-        event on the current stream behind it and free the slot."""
-        consumed = None
+    def put(self, cols: SpanColumns, width: int) -> SlotPut:
+        """Pack ``cols`` into the next slot at ``width`` lanes and issue
+        its copy to the card. A failed pack or copy raises here and
+        leaves the slot to the next put."""
+        idx = self._seq % self.depth
+        slot = self._slots[idx]
+        t0 = time.perf_counter()
+        if slot.copied is not None:
+            slot.copied.synchronize()  # guard 1: the host buffer's last copy is done
+        t1 = time.perf_counter()
+        buf, views, dev = self._buffers(slot, width)
+        self.tensorizer.pack_columns_into(views, cols, chunk_rows=self.chunk_rows)
+        copied = None
+        hit = step_wait = False
         if self._cuda:
-            stream = torch.cuda.current_stream(self.device)
-            consumed = torch.cuda.Event()
-            consumed.record(stream)
-            # The slot's device buffer is read here, off the stream it
-            # was allocated on: were it ever freed, its block must wait
-            # for this stream too.
-            staged.lanes.record_stream(stream)
-        with self._work:
-            if staged.slot is not None and consumed is not None:
-                self._slots[staged.slot].consumed = consumed
-            self._free_locked(staged)
+            hit = self._last_consumed is not None and not self._last_consumed.query()
+            with torch.cuda.stream(self._side):
+                if slot.consumed is not None:
+                    step_wait = not slot.consumed.query()
+                    self._side.wait_event(slot.consumed)  # guard 2: the step that read dev is done
+                dev.copy_(buf, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._side)
+        else:
+            dev.copy_(buf)
+        slot.copied = copied
+        self._seq += 1
+        t2 = time.perf_counter()
+        wait_s = t1 - t0
+        if copied is not None and not self.overlap:
+            copied.synchronize()
+            copied = None
+            wait_s += time.perf_counter() - t2
+        self.puts_total += 1
+        self.overlap_hits += hit
+        self.overlap_misses += not hit
+        self.step_waits += step_wait
+        self.stage_s += t2 - t1
+        self.take_wait_s += wait_s
+        return SlotPut(dev, copied, idx, t2 - t1, wait_s, hit)
 
-    def _free(self, staged: StagedBatch) -> None:
-        with self._work:
-            self._free_locked(staged)
-
-    def _free_locked(self, staged: StagedBatch) -> None:
-        if staged.slot is not None and self._slots[staged.slot].owner is staged:
-            self._slots[staged.slot].owner = None
-            self._work.notify_all()
+    def release(self, put: SlotPut) -> None:
+        """The step that reads ``put.lanes`` is enqueued: record an event
+        on the current stream behind it, which the slot's next copy waits
+        for."""
+        if not self._cuda:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        consumed = torch.cuda.Event()
+        consumed.record(stream)
+        # The slot's device buffer is read here, off the stream it was
+        # allocated on: were it ever freed, its block must wait for this
+        # stream too.
+        put.lanes.record_stream(stream)
+        self._slots[put.slot].consumed = self._last_consumed = consumed
 
     def pending(self) -> int:
-        with self._lock:
-            return len(self._staged)
-
-    def discard_pending(self) -> int:
-        """Drop every staged batch not yet taken; returns their rows.
-        Unstarted jobs are cancelled; a batch the stager is packing now
-        completes into an orphan and frees its slot."""
-        with self._work:
-            dropped = list(self._staged)
-            self._staged.clear()
-            gone = {id(s) for s in dropped}
-            self._jobs = deque(j for j in self._jobs if id(j) not in gone)
-            for s in dropped:
-                self._free_locked(s)
-            self._work.notify_all()
-        return sum(s.cols.rows for s in dropped)
-
-    def alive(self) -> bool:
-        return self._thread.is_alive() and not self._stop
-
-    def close(self) -> None:
-        with self._work:
-            self._stop = True
-            self._work.notify_all()
-        self._thread.join(timeout=5.0)
+        """Batches put and not yet dispatched between pump calls: none."""
+        return 0
 
     def stats(self) -> dict:
-        with self._lock:
-            hits, misses = self.overlap_hits, self.overlap_misses
-            taken = hits + misses
-            return {
-                "ring_depth": self.depth,
-                "staged": len(self._staged),
-                "puts_total": self.puts_total,
-                "overlap_hits": hits,
-                "overlap_misses": misses,
-                # Of the batches taken, the share whose copy was done
-                # behind the step in flight.
-                "overlap_ratio": (hits / taken) if taken else 0.0,
-                "step_waits": self.step_waits,
-                "stage_s": self.stage_s,
-                "take_wait_s": self.take_wait_s,
-            }
-
-    # -- stager thread -------------------------------------------------
+        hits, misses = self.overlap_hits, self.overlap_misses
+        puts = hits + misses
+        return {
+            "ring_depth": self.depth,
+            "staged": 0,
+            "puts_total": self.puts_total,
+            "overlap_hits": hits,
+            "overlap_misses": misses,
+            # Of the batches put, the share whose copy was issued behind
+            # a step still running on the card.
+            "overlap_ratio": (hits / puts) if puts else 0.0,
+            "step_waits": self.step_waits,
+            "stage_s": self.stage_s,
+            "take_wait_s": self.take_wait_s,
+        }
 
     def _buffers(self, slot: _Slot, width: int) -> tuple[torch.Tensor, TensorBatch, torch.Tensor]:
         host = slot.host.get(width)
@@ -311,74 +227,3 @@ class DevicePutSpine:
                     torch.empty(8 * width, dtype=torch.int32, device=self.device)
                 )
         return host[0], host[1], dev
-
-    def _fail_all_locked(self, first: StagedBatch | None = None) -> None:
-        jobs = ([first] if first is not None else []) + list(self._jobs)
-        self._jobs.clear()
-        for staged in jobs:
-            staged.error = SpineError("spine closed mid-stage")
-            staged.ready.set()
-
-    def _run(self) -> None:
-        if self._cuda:
-            torch.cuda.set_device(self.device)
-        while True:
-            with self._work:
-                while not self._jobs and not self._stop:
-                    self._work.wait(0.05)
-                if self._stop:
-                    self._fail_all_locked()
-                    return
-                staged = self._jobs.popleft()
-                t0 = time.perf_counter()
-                idx = self._seq % self.depth
-                self._seq += 1
-                slot = self._slots[idx]
-                # The slot's last batch must be released (its step
-                # enqueued) or discarded before its buffers are reused.
-                while slot.owner is not None and not self._stop:
-                    self._work.wait(0.05)
-                if self._stop:
-                    self._fail_all_locked(staged)
-                    return
-                if staged not in self._staged:
-                    # Discarded while it waited: it must not hold a slot
-                    # that no take or release would ever free.
-                    staged.ready.set()
-                    continue
-                slot.owner = staged
-                staged.slot = idx
-                consumed = slot.consumed
-            try:
-                if slot.copied is not None:
-                    slot.copied.synchronize()  # guard 1: the host buffer's last copy is done
-                buf, views, dev = self._buffers(slot, staged.width)
-                self.tensorizer.pack_columns_into(views, staged.cols, chunk_rows=self.chunk_rows)
-                step_wait = False
-                if self._cuda:
-                    with torch.cuda.stream(self._side):
-                        if consumed is not None:
-                            step_wait = not consumed.query()
-                            self._side.wait_event(consumed)  # guard 2: the step that read dev is done
-                        dev.copy_(buf, non_blocking=True)
-                        copied = torch.cuda.Event()
-                        copied.record(self._side)
-                    slot.copied = staged.copied = copied
-                else:
-                    dev.copy_(buf)
-                staged.lanes = dev
-                staged.stage_dur = time.perf_counter() - t0
-                if self.phase_observe is not None:
-                    self.phase_observe(PHASE_STAGE, staged.stage_dur)
-                with self._lock:
-                    self.puts_total += 1
-                    self.step_waits += step_wait
-                    self.stage_s += staged.stage_dur
-            except Exception as e:  # noqa: BLE001 — raised to the taker;
-                # the stager itself must survive (close() joins it).
-                staged.error = e
-            finally:
-                staged.ready.set()
-            # Hold no batch between jobs: its columns may view a decode
-            # scratch that the pool recycles once nothing holds it.
-            staged = None

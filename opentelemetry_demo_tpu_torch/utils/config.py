@@ -403,9 +403,9 @@ DAEMON_KNOBS: dict[str, tuple[str, object, str]] = {
 
 # Device-put spine knobs (runtime.spine: the staging ring between the
 # pipeline's batch assembly and the donated device step — pack + async
-# device puts on a stager thread, overlapping batch k+1's host→device
-# transfer with batch k's in-flight compute; runtime/daemon.py threads
-# these into the pipeline). Same ONE-registry discipline as every
+# device puts on the pump thread through a side stream, overlapping
+# batch k+1's host→device transfer with batch k's in-flight compute;
+# runtime/daemon.py threads these into the pipeline). Same ONE-registry discipline as every
 # other family — daemon, compose overlay, k8s generator and
 # sanitycheck.py all consume this dict. Values must stay literals
 # (sanitycheck reads via ast.literal_eval, without importing torch).
@@ -413,15 +413,15 @@ SPINE_KNOBS: dict[str, tuple[str, object, str]] = {
     "ANOMALY_SPINE_RING": (
         "int", 2,
         "device-put staging ring depth: pre-allocated host batch "
-        "buffers a stager thread packs + asynchronously puts through, "
+        "buffers the pump thread packs + asynchronously puts through, "
         "so batch k+1's transfer rides behind batch k's in-flight "
         "donated step (2 = classic double buffering; 0 = spine off — "
         "pack+put inline on the pump thread, the pre-spine path)",
     ),
     "ANOMALY_SPINE_OVERLAP": (
         "int", 1,
-        "1 = with a step in flight, dispatch only batches whose put "
-        "already completed (transfer hidden behind compute; "
+        "1 = dispatch without waiting on the host for the put: the "
+        "step waits for it on the card (transfer hidden behind compute; "
         "anomaly_spine_put_overlap_ratio tracks the hit rate); 0 = "
         "always wait for the put synchronously (A/B debugging)",
     ),

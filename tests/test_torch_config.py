@@ -101,6 +101,11 @@ PORT_WORDING = {
         "can't keep pace;",
         "can't keep pace, and widens a take to the ladder width that holds the pending backlog;",
     ),
+    "ANOMALY_SPINE_RING": ("buffers a stager thread packs", "buffers the pump thread packs"),
+    "ANOMALY_SPINE_OVERLAP": (
+        "with a step in flight, dispatch only batches whose put already completed",
+        "dispatch without waiting on the host for the put: the step waits for it on the card",
+    ),
 }
 
 

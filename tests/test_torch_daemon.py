@@ -60,11 +60,14 @@ EXCLUDED_SERIES = (
     "container_",
 )
 
-# Series whose values follow how the spine's stager thread was scheduled
-# against the pump, in both packages: left out of the line-for-line
-# comparison, but present in both expositions with the same label sets.
+# Series whose values follow timing, differently in each package: left
+# out of the line-for-line comparison, but present in both expositions
+# with the same label sets. The reference counts the takes that found
+# its stager thread's copy already done; the port, which puts on the
+# pump thread, counts the copies issued while the last step still ran
+# on the card (none on the CPU).
 TIMING_SERIES = (
-    # the share of takes that found the stager's copy already done
+    # the overlap hit share, over the run and per scrape window
     "anomaly_spine_put_overlap_ratio",
     "anomaly_spine_put_overlap_window_ratio",
 )

@@ -3,8 +3,8 @@ thread that ran the phase, when it ends, so a recorder that stamps
 ``time.perf_counter()`` at each call places every phase in time
 (``runtime/selftrace.py``'s contract).
 
-The pump's work phases nest inside its ``pump`` phase; the spine's
-``stage`` is observed by the stager thread; the four waits
+The pump's work phases nest inside its ``pump`` phase, the spine's
+``stage`` among them; the four waits
 (``queue_wait``, ``pending_wait``, ``spine_wait``, ``inflight``) each
 cover a hold the test makes, and ``report`` times ``on_report``. The
 port alone: these phases have no counterpart in the reference package.
@@ -121,6 +121,8 @@ def test_a_pump_that_returns_early_is_observed():
 
 
 def test_stage_is_observed_on_the_stager_thread():
+    """The pump packs and puts each batch itself: every ``stage`` is
+    observed on the pump's thread, inside a ``pump`` call."""
     rec = Recorder()
     pipe = _pipe(rec, spine_ring=2)
     rng = np.random.default_rng(3)
@@ -133,8 +135,10 @@ def test_stage_is_observed_on_the_stager_thread():
         pipe.close()
     stages = rec.of(selftrace.PHASE_STAGE)
     assert len(stages) == pipe.spine_stats()["puts_total"] == 6
-    assert {e[3] for e in stages} == {"spine-stager"}
-    assert all(e[3] != "spine-stager" for e in rec.events if e[0] != selftrace.PHASE_STAGE)
+    assert {e[3] for e in rec.events} == {threading.current_thread().name}
+    pumps = [(t - dt, t) for _p, t, dt, _th in rec.of(selftrace.PHASE_PUMP)]
+    for _p, t, dt, _th in stages:
+        assert any(a <= t - dt and t <= b for a, b in pumps)
 
 
 def test_harvest_is_observed_before_the_provenance_ring():
@@ -168,8 +172,10 @@ def test_pending_wait_covers_the_hold_before_the_pump():
 
 
 def test_spine_wait_covers_a_slow_stage():
-    """A stager that takes ``HOLD_S`` to pack: the batch waits that long
-    on the ring, and the waiting take is the tail of it."""
+    """A pack that takes ``HOLD_S``: the batch waits at least that long
+    from its put's start to its dispatch (``spine_wait``), which holds
+    the pack and copy issue (``stage``) and any wait on a copy
+    (``put_wait``)."""
     rec = Recorder()
     pipe = _pipe(rec, spine_ring=2)
     pack = pipe._spine.tensorizer.pack_columns_into
@@ -186,8 +192,9 @@ def test_spine_wait_covers_a_slow_stage():
         pipe.close()
     (spine,) = rec.of(selftrace.PHASE_SPINE_WAIT)
     (put,) = rec.of(selftrace.PHASE_PUT_WAIT)
-    assert spine[2] >= HOLD_S and put[2] <= spine[2]
-    assert spine[3] == put[3] == threading.current_thread().name
+    (stage,) = rec.of(selftrace.PHASE_STAGE)
+    assert spine[2] >= stage[2] >= HOLD_S and put[2] + stage[2] <= spine[2]
+    assert spine[3] == put[3] == stage[3] == threading.current_thread().name
 
 
 def test_inflight_covers_the_hold_before_the_harvest():

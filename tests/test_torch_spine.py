@@ -6,16 +6,18 @@
   state bit-identical and every report read equal to the inline run's
   (a missing guard would let a copy overwrite lanes a step still reads,
   or a pack overwrite bytes a copy still reads).
-- The ring: slots allocated once per width and reused, a slot waits for
-  its last batch's release, ``take`` never hangs after ``close``,
-  ``discard_pending`` and ``stats``.
-- ``spine_overlap=False`` makes every take wait, as in the reference,
-  and leaves state and reports bit-identical to overlap on.
+- The ring: slots allocated once per width and reused, a slot's host
+  buffer repacked only after its last copy, a failed pack raised to the
+  pump with its slot left free, and ``stats``.
+- The pump puts and dispatches each batch in the same call: nothing is
+  staged after any pump, and no thread is started for it.
+- ``spine_overlap=False`` leaves state and reports bit-identical to
+  overlap on, and the reference's takes all wait.
 - How deep the pump pipelines across its own calls: a caught-up pump
   (its take left no rows) reads its own batch's report before it
-  returns; a backlogged one keeps the overlap-hit take and one report in
-  flight; the way from one to the other skips no report; the async
-  harvester and a positive harvest interval keep their cadence.
+  returns; a backlogged one keeps one report in flight; the way from one
+  to the other skips no report; the async harvester and a positive
+  harvest interval keep their cadence.
 - A backlogged take's width (adaptive batching): the smallest ladder
   width that holds the backlog, up to the ladder's top, with the
   controller's width and hold untouched, spine on and off; the state
@@ -44,7 +46,8 @@ from opentelemetry_demo_tpu_torch.models import AnomalyDetector, DetectorConfig
 from opentelemetry_demo_tpu_torch.runtime.lagbench import make_columns
 from opentelemetry_demo_tpu_torch.runtime import selftrace
 from opentelemetry_demo_tpu_torch.runtime.pipeline import DetectorPipeline
-from opentelemetry_demo_tpu_torch.runtime.spine import DevicePutSpine, SpineError, slot_views
+from opentelemetry_demo_tpu_torch.runtime.spine import DevicePutSpine, slot_views
+from opentelemetry_demo_tpu_torch.utils.flags import FlagEvaluator
 from opentelemetry_demo_tpu_torch.runtime.tensorize import SpanColumns, SpanTensorizer
 
 SMALL = dict(num_services=8, hll_p=8, cms_width=512)
@@ -230,9 +233,11 @@ def _reference_run(chunks, **kw):
 
 @pytest.mark.parametrize("depth", [1, 2])
 def test_overlap_off_leaves_state_and_verdicts_as_overlap_on_and_the_reference(monkeypatch, depth):
-    """``spine_overlap=False`` (``ANOMALY_SPINE_OVERLAP=0``) makes every
-    take wait, in the port as in the reference, and changes no bit of
-    the state or of a report: overlap decides only when a batch goes.
+    """``spine_overlap=False`` (``ANOMALY_SPINE_OVERLAP=0``) makes the
+    port's pump wait on the host for each put's copy (on the card; off it
+    every copy is synchronous) and the reference's takes all wait; it
+    changes no bit of the state or of a report: overlap decides only when
+    the host goes on.
     The reports equal the reference pipeline's on the same stream. (The
     reference's own spine-on run is not the comparison: under CPU load
     its reports vary from run to run, while the port's do not.)"""
@@ -240,10 +245,9 @@ def test_overlap_off_leaves_state_and_verdicts_as_overlap_on_and_the_reference(m
 
     chunks = _stream(seed=11, n_batches=30)
     on = _run("cpu", chunks, spine_ring=depth)
-    waits = _spy_waits(monkeypatch, DevicePutSpine)
     off = _run("cpu", chunks, spine_ring=depth, spine_overlap=False)
     assert on[1]._spine.overlap is True and off[1]._spine.overlap is False
-    assert waits and all(waits)
+    assert off[1].spine_stats()["puts_total"] == off[1].stats.batches
     _assert_same_run(on, off)
     ref_waits = _spy_waits(monkeypatch, JDevicePutSpine)
     jpipe, _ = _reference_run(chunks, spine_ring=depth, spine_overlap=False)
@@ -273,122 +277,86 @@ def test_ring_slots_are_allocated_once_and_reused():
     tz = SpanTensorizer(num_services=8, batch_size=128)
     spine = DevicePutSpine(tz, "cpu", depth=2)
     rng = np.random.default_rng(5)
-    try:
-        for i in range(8):
-            spine.stage(make_columns(rng, 128), 128, float(i), float(i))
-            staged = spine.take(wait=True)
-            assert staged is not None and staged.lanes is not None
-            assert staged.lanes.shape == (8 * 128,) and staged.slot == i % 2
-            spine.release(staged)
-        hosts = set()
-        for slot in spine._slots:
-            assert list(slot.host) == [128] and list(slot.dev) == [128]
-            hosts.add(slot.host[128][0].data_ptr())
-        assert len(hosts) == 2
-        st = spine.stats()
-        assert st["puts_total"] == 8 and st["ring_depth"] == 2 and st["staged"] == 0
-        assert st["overlap_hits"] + st["overlap_misses"] == 8
-    finally:
-        spine.close()
+    for i in range(8):
+        put = spine.put(make_columns(rng, 128), 128)
+        assert put.lanes.shape == (8 * 128,) and put.slot == i % 2
+        spine.release(put)
+    hosts = set()
+    for slot in spine._slots:
+        assert list(slot.host) == [128] and list(slot.dev) == [128]
+        hosts.add(slot.host[128][0].data_ptr())
+    assert len(hosts) == 2
+    st = spine.stats()
+    assert st["puts_total"] == 8 and st["ring_depth"] == 2 and st["staged"] == 0
+    assert st["overlap_hits"] + st["overlap_misses"] == 8
+
+
+class _SlowCopy:
+    """A slot's last copy event that takes ``HOLD_S`` to finish; the pack
+    that follows must find it done."""
+
+    HOLD_S = 0.05
+
+    def __init__(self, log: list[str]):
+        self.log = log
+
+    def synchronize(self) -> None:
+        time.sleep(self.HOLD_S)
+        self.log.append("copy done")
 
 
 def test_a_slot_waits_for_its_last_batch_to_be_released():
-    """Guard 2 on the CPU: the stager does not repack or overwrite a slot
-    until the batch that holds it is released, so a non-waiting take
-    finds nothing and a release lets the next batch through."""
+    """Guard 1: a slot's host buffer is repacked only once its last copy
+    is done. The put waits on the copy's event before it packs, the
+    waited seconds are the put's ``wait_s`` and the stats' ``take_wait_s``,
+    and the lanes then hold the new batch."""
     tz = SpanTensorizer(num_services=8, batch_size=64)
     spine = DevicePutSpine(tz, "cpu", depth=1)
     rng = np.random.default_rng(1)
-    try:
-        a, b = make_columns(rng, 64), make_columns(rng, 64)
-        spine.stage(a, 64, 0.0, 0.0)
-        first = spine.take(wait=True)
-        lanes_a = first.lanes.clone()
-        spine.stage(b, 64, 0.1, 0.1)
-        time.sleep(0.1)
-        assert spine.take(wait=False) is None  # the slot is still held
-        assert torch.equal(first.lanes, lanes_a)  # and its lanes untouched
-        spine.release(first)
-        second = spine.take(wait=True)
-        assert second is not None and second.slot == 0 and second.lanes is first.lanes
-        want = tz.pack_columns(b, width=64)
-        assert np.array_equal(slot_views(second.lanes, 64).trace_lo, want.trace_lo)
-        spine.release(second)
-    finally:
-        spine.close()
+    log: list[str] = []
+    pack = tz.pack_columns_into
 
+    def logged_pack(*a, **kw):
+        log.append("pack")
+        return pack(*a, **kw)
 
-def test_take_does_not_hang_after_close():
-    tz = SpanTensorizer(num_services=8, batch_size=64)
-    spine = DevicePutSpine(tz, "cpu", depth=1)
-    rng = np.random.default_rng(2)
-    spine.stage(make_columns(rng, 64), 64, 0.0, 0.0)
-    held = spine.take(wait=True)
-    spine.stage(make_columns(rng, 64), 64, 0.1, 0.1)  # waits for the held slot
-    spine.close()
-    t0 = time.monotonic()
-    with pytest.raises(SpineError, match="closed"):
-        spine.take(wait=True, timeout=10.0)
-    assert time.monotonic() - t0 < 5.0
-    assert spine.take(wait=True) is None
-    with pytest.raises(SpineError, match="closed"):
-        spine.stage(make_columns(rng, 64), 64, 0.2, 0.2)
-    assert not spine.alive()
-    spine.release(held)
-
-
-def test_discard_pending_drops_staged_rows_and_frees_their_slots():
-    tz = SpanTensorizer(num_services=8, batch_size=64)
-    spine = DevicePutSpine(tz, "cpu", depth=2)
-    rng = np.random.default_rng(3)
-    try:
-        spine.stage(make_columns(rng, 64), 64, 0.0, 0.0)
-        spine.stage(make_columns(rng, 40), 64, 0.1, 0.1)
-        spine.stage(make_columns(rng, 30), 64, 0.2, 0.2)
-        assert spine.pending() == 3
-        assert spine.discard_pending() == 134
-        assert spine.pending() == 0 and spine.take(wait=False) is None
-        # The ring still works after the discard.
-        spine.stage(make_columns(rng, 64), 64, 0.3, 0.3)
-        staged = spine.take(wait=True)
-        assert staged is not None and staged.t_now == 0.3
-        spine.release(staged)
-    finally:
-        spine.close()
-
-
-def test_a_batch_discarded_while_it_waits_for_its_slot_frees_nothing_it_never_took():
-    tz = SpanTensorizer(num_services=8, batch_size=64)
-    spine = DevicePutSpine(tz, "cpu", depth=1)
-    rng = np.random.default_rng(5)
-    try:
-        spine.stage(make_columns(rng, 64), 64, 0.0, 0.0)
-        held = spine.take(wait=True)
-        spine.stage(make_columns(rng, 64), 64, 0.1, 0.1)  # waits for the held slot
-        time.sleep(0.1)
-        assert spine.discard_pending() == 64
-        spine.release(held)
-        spine.stage(make_columns(rng, 64), 64, 0.2, 0.2)
-        staged = spine.take(wait=True, timeout=10.0)
-        assert staged.t_now == 0.2 and staged.slot == 0
-        spine.release(staged)
-    finally:
-        spine.close()
+    tz.pack_columns_into = logged_pack
+    first = spine.put(make_columns(rng, 64), 64)
+    spine.release(first)
+    spine._slots[0].copied = _SlowCopy(log)
+    b = make_columns(rng, 64)
+    second = spine.put(b, 64)
+    assert log == ["pack", "copy done", "pack"]
+    assert second.slot == 0 and second.lanes is first.lanes
+    assert second.wait_s >= _SlowCopy.HOLD_S and second.wait_s <= spine.stats()["take_wait_s"]
+    want = tz.pack_columns(b, width=64)
+    assert np.array_equal(slot_views(second.lanes, 64).trace_lo, want.trace_lo)
+    spine.release(second)
 
 
 def test_a_failed_stage_raises_to_the_taker():
-    tz = SpanTensorizer(num_services=8, batch_size=64)
-    spine = DevicePutSpine(tz, "cpu", depth=1)
+    """A pack that fails (one row too many) raises to the pump that put
+    it; the slot is left free, so the next pump's batch takes it."""
+    det = AnomalyDetector(DetectorConfig(**SMALL), device="cpu")
+    pipe = DetectorPipeline(det, batch_size=64, spine_ring=2)
     rng = np.random.default_rng(4)
+    pack = pipe._spine.tensorizer.pack_columns_into
+    pipe._spine.tensorizer.pack_columns_into = lambda views, cols, **kw: pack(
+        views, make_columns(rng, 65), **kw
+    )
     try:
-        spine.stage(make_columns(rng, 65), 64, 0.0, 0.0)  # one row too many
-        with pytest.raises(SpineError, match="exceeds batch width"):
-            spine.take(wait=True)
-        spine.stage(make_columns(rng, 64), 64, 0.1, 0.1)  # the slot was freed
-        staged = spine.take(wait=True)
-        spine.release(staged)
+        pipe.submit_columns(make_columns(rng, 64))
+        with pytest.raises(ValueError, match="exceeds batch width"):
+            pipe.pump(0.0)
+        assert pipe.stats.batches == 0 and pipe._spine.pending() == 0 and pipe._spine._seq == 0
+        pipe._spine.tensorizer.pack_columns_into = pack
+        pipe.submit_columns(make_columns(rng, 64))
+        pipe.pump(0.1)
+        # The batch went through slot 0; slot 1 was never touched.
+        assert pipe._spine._seq == 1 and not pipe._spine._slots[1].host
+        assert pipe.stats.batches == 1 and pipe.spine_stats()["puts_total"] == 1
     finally:
-        spine.close()
+        pipe.close()
 
 
 def test_spine_knobs_and_stats_surface():
@@ -403,19 +371,6 @@ def test_spine_knobs_and_stats_surface():
     assert set(st) == {"ring_depth", "staged", "puts_total", "overlap_hits", "overlap_misses",
                        "overlap_ratio", "step_waits", "stage_s", "take_wait_s"}
     assert st["ring_depth"] == 3
-    pipe.close()
-
-
-def test_drain_flushes_staged_batches():
-    det = AnomalyDetector(DetectorConfig(**SMALL), device="cpu")
-    pipe = DetectorPipeline(det, batch_size=128, spine_ring=3)
-    rng = np.random.default_rng(2)
-    for _ in range(5):
-        pipe.submit_columns(make_columns(rng, 128))
-    pipe.drain()
-    assert pipe.pending_rows() == 0 and pipe._spine.pending() == 0
-    assert pipe.stats.batches == 5 and pipe.stats.spans == 5 * 128
-    assert pipe.spine_stats()["puts_total"] == 5
     pipe.close()
 
 
@@ -464,11 +419,10 @@ def test_a_caught_up_pump_reads_its_own_batch_before_it_returns(spine_ring):
         pipe.close()
 
 
-def test_a_backlogged_pump_keeps_one_report_in_flight_and_the_overlap_take(monkeypatch):
-    """Rows left after every take: after the first pump (card idle, a
-    waiting take) each take is the overlap-hit one (``wait=False``), one
-    report stays in flight, and no pump reads a report it dispatched."""
-    waits = _spy_waits(monkeypatch, DevicePutSpine)
+def test_a_backlogged_pump_keeps_one_report_in_flight_and_the_overlap_take():
+    """Rows left after every take: one report stays in flight, so step k
+    runs while batch k+1 is put, and no pump reads a report it
+    dispatched."""
     pipe, seen = _pump_pipe(spine_ring=2)
     rng = np.random.default_rng(4)
     for _ in range(6):
@@ -477,11 +431,6 @@ def test_a_backlogged_pump_keeps_one_report_in_flight_and_the_overlap_take(monke
         for k in range(4):
             pipe.pump(float(k))
             assert _in_flight(pipe) == 1
-            # Let the stager finish, so the next take finds the copy done.
-            for staged in list(pipe._spine._staged):
-                assert staged.ready.wait(10.0)
-        assert waits[0] is True and waits[1:] and not any(waits[1:])
-        assert pipe.spine_stats()["overlap_hits"] >= 1
         assert len(seen) == pipe.stats.batches - 1
         assert pipe.stats.pumps_caught_up == 0 and pipe.stats.reports_same_pump == 0
         pipe.drain()
@@ -492,39 +441,104 @@ def test_a_backlogged_pump_keeps_one_report_in_flight_and_the_overlap_take(monke
 
 
 def test_from_backlogged_to_caught_up_no_report_is_skipped():
-    """One report in flight and two batches staged (the stager held, so
-    the overlap takes missed) when the last rows are taken: the caught-up
-    pump dispatches both and its own, reading the oldest first to keep at
-    most two in flight, and ends with every report read."""
+    """One report in flight when the last rows are taken: the caught-up
+    pump dispatches its own batch beside it, pushing none out unread, and
+    ends with every report read, its own among them."""
     pipe, seen = _pump_pipe(spine_ring=2)
-    gate = threading.Event()
-    pack = pipe._spine.tensorizer.pack_columns_into
-    packs: list[int] = []
-
-    def held_pack(*a, **kw):
-        packs.append(1)
-        if len(packs) > 1:
-            assert gate.wait(10.0)
-        return pack(*a, **kw)
-
-    pipe._spine.tensorizer.pack_columns_into = held_pack
     rng = np.random.default_rng(5)
     for _ in range(4):
         pipe.submit_columns(make_columns(rng, 256))
     try:
         for k in range(3):
             pipe.pump(float(k))
-        assert _in_flight(pipe) == 1 and pipe._spine.pending() == 2 and not seen
-        gate.set()
+            assert _in_flight(pipe) == 1 and [t for t, _ in seen] == [float(i) for i in range(k)]
         pipe.pump(3.0)
         assert [t for t, _ in seen] == [0.0, 1.0, 2.0, 3.0]
         assert _in_flight(pipe) == 0 and pipe._spine.pending() == 0
         assert pipe.stats.reports_skipped == 0 and pipe.stats.batches == 4
-        # Batches 1-3 went in the last pump and were read there.
-        assert pipe.stats.pumps_caught_up == 1 and pipe.stats.reports_same_pump == 3
+        assert pipe.stats.pumps_caught_up == 1 and pipe.stats.reports_same_pump == 1
     finally:
-        gate.set()
         pipe.close()
+
+
+_OFF = {"flags": {"anomalyDetectorEnabled": {
+    "state": "ENABLED", "variants": {"on": True, "off": False}, "defaultVariant": "off",
+}}}
+
+
+@pytest.mark.parametrize("case", ["backlogged", "caught_up", "flag_off"])
+def test_nothing_is_staged_after_a_pump(case):
+    """Whatever a pump finds (a backlog, input it catches up with, or the
+    detector switched off), it leaves no batch on the ring: every batch it
+    put is dispatched, and at most one report rides to the next pump."""
+    kw = dict(flags=FlagEvaluator(_OFF)) if case == "flag_off" else {}
+    pipe, _ = _pump_pipe(spine_ring=2, **kw)
+    rng = np.random.default_rng(8)
+    rows = 256 if case == "backlogged" else 200
+    try:
+        for k in range(4):
+            pipe.submit_columns(make_columns(rng, rows))
+            if case == "backlogged":
+                pipe.submit_columns(make_columns(rng, rows))
+            pipe.pump(float(k))
+            assert pipe._spine.pending() == 0 and pipe.spine_stats()["staged"] == 0
+            assert pipe.spine_stats()["puts_total"] == pipe.stats.batches
+            assert _in_flight(pipe) <= 1
+        assert pipe.stats.batches == (0 if case == "flag_off" else 4)
+        assert pipe.stats.dropped_disabled == (4 * rows if case == "flag_off" else 0)
+    finally:
+        pipe.close()
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_a_backlogged_pump_dispatches_the_batch_it_took(depth):
+    """A backlog of six widths: each pump dispatches, in the same call,
+    the batch it took (its timebase and its rows), not one put on an
+    earlier pump."""
+    pipe, _ = _pump_pipe(spine_ring=depth)
+    dispatched: list[tuple[float, np.ndarray]] = []
+    pipe.history_capture = lambda cols, t: dispatched.append((t, np.array(cols.trace_key)))
+    rng = np.random.default_rng(9)
+    sent = [make_columns(rng, 256) for _ in range(6)]
+    for cols in sent:
+        pipe.submit_columns(cols)
+    try:
+        for k in range(5):
+            pipe.pump(float(k))
+            assert pipe.pending_rows() == (5 - k) * 256
+            assert len(dispatched) == pipe.stats.batches == k + 1
+            t, keys = dispatched[-1]
+            assert t == float(k) and np.array_equal(keys, sent[k].trace_key)
+    finally:
+        pipe.close()
+
+
+def test_no_thread_is_started_for_the_spine():
+    """The pump puts on its own thread: no thread starts while it pumps,
+    after a failed pack, or stays after ``close``."""
+    before = set(threading.enumerate())
+    pipe, _ = _pump_pipe(spine_ring=2)
+    rng = np.random.default_rng(10)
+    pack = pipe._spine.tensorizer.pack_columns_into
+
+    def failing_pack(*a, **kw):
+        raise ValueError("pack failed")
+
+    try:
+        pipe._spine.tensorizer.pack_columns_into = failing_pack
+        pipe.submit_columns(make_columns(rng, 256))
+        with pytest.raises(ValueError, match="pack failed"):
+            pipe.pump(0.0)
+        pipe._spine.tensorizer.pack_columns_into = pack
+        for k in range(3):
+            pipe.submit_columns(make_columns(rng, 256))
+            pipe.pump(float(k + 1))
+        assert set(threading.enumerate()) <= before
+    finally:
+        pipe.close()
+    assert set(threading.enumerate()) <= before
+    assert not [t for t in threading.enumerate() if t.name == "spine-stager"]
+    assert pipe.stats.batches == 3
 
 
 @pytest.mark.parametrize(
@@ -555,9 +569,9 @@ def test_the_async_harvester_and_a_harvest_interval_keep_their_cadence(kw):
 
 
 def test_dispatch_against_state_readers_under_the_dispatch_lock():
-    """The stager packs batch k+1 while the pump dispatches k and three
-    readers copy the state under the dispatch lock: no error, every put
-    dispatched, every report finite."""
+    """The pump puts and dispatches every batch while three readers copy
+    the state under the dispatch lock: no error, every put dispatched,
+    every report finite."""
     det = AnomalyDetector(DetectorConfig(**SMALL), device="cpu")
     harvested = []
     pipe = DetectorPipeline(det, on_report=lambda t, r, f: harvested.append(r), batch_size=256, spine_ring=2)
