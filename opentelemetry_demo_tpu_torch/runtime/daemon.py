@@ -54,7 +54,9 @@ pass):
   ``ANOMALY_QUEUE_LOW_WATERMARK`` (saturation hysteresis, defaults
   0.85/0.5), ``ANOMALY_BROWNOUT_HOLD_S`` / ``ANOMALY_BROWNOUT_MAX_LEVEL``
   (head-sampling ladder, defaults 2.0 s / 4), ``ANOMALY_RETRY_AFTER_S``
-  (the 429/RESOURCE_EXHAUSTED retry hint, default 1.0)
+  (the cap of the 429/RESOURCE_EXHAUSTED retry hint, default 1.0; a
+  saturated queue hints the time its pump needs to drain to the low
+  watermark, which HTTP and the native door round up to whole seconds)
 - Ingest-pool knobs (one registry: ``utils.config.INGEST_KNOBS``;
   engine: ``runtime.ingest_pool``): ``ANOMALY_INGEST_WORKERS`` (decode
   workers, default 2; 0 disables the pool — serial in-thread decode),

@@ -8,6 +8,10 @@ capacity, then the pressure cut, measuring the degradation contract:
   pressure clears the ladder relaxes to level 0 with the queue under the
   low watermark within a bounded recovery window.
 
+The feed asks ``admission_retry_after`` before each chunk, as a receiver
+does, but feeds whatever it answers; ``retry_hints_derived`` and
+``retry_hint_s_sum`` count the answers below ``retry_after_s``.
+
 Runs on the card unless ``device="cpu"`` is passed. As a script it
 prints the result as one JSON line::
 
@@ -87,6 +91,9 @@ def measure_overload(
         i += 1
         fed += cols.rows
         fed_errors += int((cols.is_error > 0).sum())
+        # A receiver asks before each body; the feed is forced, so the
+        # answer only counts (``retry_hints_derived``).
+        pipe.admission_retry_after()
         pipe.submit_columns(cols)
         pipe.pump(time.monotonic())
         max_pending = max(max_pending, pipe.pending_rows())
@@ -126,6 +133,8 @@ def measure_overload(
         "conserved": bool(dispatched + shed_ok + shed_error + brownout_rows == fed + batch),
         "saturated_under_load": bool(saturated_under_load),
         "saturation_events": pipe.stats.saturation_events,
+        "retry_hints_derived": pipe.stats.retry_hints_derived,
+        "retry_hint_s_sum": round(pipe.stats.retry_hint_s_sum, 6),
         "brownout_max_level": brownout_max,
         "recovery_s": recovery_s,
         "lag_p99_ms": round(pipe.stats.lag_p99_ms(), 3),

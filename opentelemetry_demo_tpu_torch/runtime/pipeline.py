@@ -31,10 +31,13 @@ Overload protection (``queue_max_rows`` > 0): the pending queue is
 row-budgeted with high and low watermarks. Over budget, the oldest
 OK-lane rows are shed first and error-lane rows never (``SHED_LANES``);
 between the watermarks a saturation flag (hysteresis) tells receivers to
-answer a retryable refusal (``admission_retry_after``); and under
-sustained saturation a deterministic brownout ladder head-samples
-OK-lane rows (1/2, 1/4, …) so detection stays live. A per-tenant token
-bucket (``tenant_quota_rows_s``) clips a noisy tenant ahead of all that.
+answer a retryable refusal (``admission_retry_after``), whose hint is the
+time the pump needs to drain the queue to the low watermark (the takes
+that needs at the next take's width, times the pump's measured period),
+at most ``retry_after_s``; and under sustained saturation a
+deterministic brownout ladder head-samples OK-lane rows (1/2, 1/4, …) so
+detection stays live. A per-tenant token bucket (``tenant_quota_rows_s``)
+clips a noisy tenant ahead of all that.
 
 Device-put spine (``spine_ring`` > 0, ``runtime.spine``): the pump packs
 each batch into a ring of pinned slots and copies it to the card on a
@@ -210,6 +213,10 @@ class PipelineStats:
     reports_same_pump: int = 0
     # Takes whose width the backlog raised above the controller's.
     pumps_widened: int = 0
+    # Saturated refusals answered below ``retry_after_s``, and the seconds
+    # those answers hinted.
+    retry_hints_derived: int = 0
+    retry_hint_s_sum: float = 0.0
 
     def lag_p99_ms(self) -> float:
         if not self.lag_ms:
@@ -350,6 +357,9 @@ class DetectorPipeline:
         self.brownout_hold_s = brownout_hold_s
         self.brownout_max_level = int(brownout_max_level)
         self.retry_after_s = retry_after_s
+        # The starts of the last pump calls on admission's clock: the
+        # pump's period, which a saturated queue's hint reads.
+        self._pump_starts: deque = deque(maxlen=9)
         self._saturated = False
         self._brownout_level = 0
         self._sat_since = 0.0
@@ -582,12 +592,38 @@ class DetectorPipeline:
 
     def admission_retry_after(self) -> float | None:
         """None while admitting; a Retry-After hint (seconds) while the
-        queue is saturated or the keyspace ladder is at its shed rung."""
+        queue is saturated or the keyspace ladder is at its shed rung
+        (``keyspace_retry_after_s``).
+
+        A saturated queue answers the time its pump needs to drain it to
+        the low watermark, where admission reopens: ``k`` pumps (the rows
+        above the low watermark over the width the next take would have,
+        at least one) times the pump's period, at most ``retry_after_s``.
+        The period is the mean interval between the last pump calls'
+        starts, or the time since the last start if that is longer, so a
+        stalled pump raises the hint toward the cap. Before two pump
+        calls no period is known, and the answer is ``retry_after_s``."""
         if self._saturated:
-            return self.retry_after_s
+            return self._drain_hint()
         if self._keyspace_level >= KEYSPACE_LEVEL_SHED:
             return self.keyspace_retry_after_s
         return None
+
+    def _drain_hint(self) -> float:
+        cap = self.retry_after_s
+        starts = tuple(self._pump_starts)
+        if len(starts) < 2:
+            return cap
+        period = max((starts[-1] - starts[0]) / (len(starts) - 1), time.monotonic() - starts[-1])
+        pending = self.pending_rows()
+        take = self._take_width(self._controller_width(), pending)
+        pumps = max(-(-(pending - self._low_rows) // take), 1)
+        hint = min(pumps * period, cap)
+        if hint < cap:
+            with self._admission_lock:
+                self.stats.retry_hints_derived += 1
+                self.stats.retry_hint_s_sum += hint
+        return hint
 
     # -- keyspace ladder -----------------------------------------------
 
@@ -674,9 +710,13 @@ class DetectorPipeline:
         backlogged one leaves the newest step in flight and reads one
         report (module doc). Callers drive wall time or a virtual clock;
         without ``t_now`` the caller's last timebase is reused, so a
-        virtual-time stream never mixes in ``time.monotonic()``.
+        virtual-time stream never mixes in ``time.monotonic()``. The
+        call's start is stamped on admission's clock (``time.monotonic()``),
+        whatever the timebase: the pump's period that
+        ``admission_retry_after`` reads.
         """
         t0 = time.perf_counter()
+        self._pump_starts.append(time.monotonic())
         self._pump_seq += 1
         self._pump_call = self._pump_seq
         try:

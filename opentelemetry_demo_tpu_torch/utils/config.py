@@ -97,7 +97,9 @@ OVERLOAD_KNOBS: dict[str, tuple[str, object, str]] = {
     ),
     "ANOMALY_RETRY_AFTER_S": (
         "float", 1.0,
-        "Retry-After hint (seconds) handed to throttled OTLP producers",
+        "the longest Retry-After hint (seconds) handed to throttled OTLP "
+        "producers; a saturated queue answers the time its pump needs to "
+        "drain to the low watermark, at most this",
     ),
 }
 

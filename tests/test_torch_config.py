@@ -106,6 +106,11 @@ PORT_WORDING = {
         "with a step in flight, dispatch only batches whose put already completed",
         "dispatch without waiting on the host for the put: the step waits for it on the card",
     ),
+    "ANOMALY_RETRY_AFTER_S": (
+        "Retry-After hint (seconds) handed to throttled OTLP producers",
+        "the longest Retry-After hint (seconds) handed to throttled OTLP producers; a saturated "
+        "queue answers the time its pump needs to drain to the low watermark, at most this",
+    ),
 }
 
 

@@ -6,15 +6,20 @@ patched into the ``time`` attribute of both pipeline modules: shed rows
 per lane (the error lane always 0), saturation events, brownout levels,
 ``admission_retry_after``, tenant-quota sheds, the adaptive width over
 one outcome sequence, the in-flight bound's skips and ``query_meta``
-after a flagged run must be equal. Then the pipeline-level overload
-cases of ``tests/test_overload.py`` on the port, the harvester's
-supervision hooks, ``warm_widths`` and the two benches at a small size.
+after a flagged run must be equal. The one departure: once the port's
+pumps are stamped, a saturated queue's Retry-After is its own drain time,
+at most the reference's constant; its rule and a closed loop on the wall
+clock are tested here too. Then the pipeline-level overload cases of
+``tests/test_overload.py`` on the port, the harvester's supervision
+hooks, ``warm_widths`` and the two benches at a small size.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import types
+from collections import deque
 
 import numpy as np
 import pytest
@@ -78,14 +83,46 @@ def _pending_error_rows(pipe) -> int:
         return sum(int((c.is_error > 0).sum()) for c, _ in pipe._pending)
 
 
-def _admission(p) -> tuple:
+def _admission(p, hint: bool = True) -> tuple:
     with p._pending_lock:
         keys = [c.trace_key.tolist() for c, _ in p._pending]
     return (
         p.pending_rows(), p.saturated, p.brownout_level, dict(p.stats.shed_rows),
-        p.stats.brownout_rows, p.stats.saturation_events, p.admission_retry_after(),
+        p.stats.brownout_rows, p.stats.saturation_events,
+        p.admission_retry_after() if hint else None,
         p.stats.batches, p.stats.spans, keys,
     )
+
+
+def _period(pump_starts, now: float) -> float:
+    """The pump's period from the test's own record of the pump calls'
+    starts: the mean of the last eight intervals, or the time since the
+    last start if longer."""
+    last = pump_starts[-9:]
+    return max((last[-1] - last[0]) / (len(last) - 1), now - last[-1])
+
+
+def _drain_rule(pending: int, low: int, take: int, pump_starts: list, now: float, cap: float) -> float:
+    """The saturated queue's Retry-After: the pumps to the low watermark
+    (at least one) times the period, at most ``cap``; ``cap`` before two
+    pumps."""
+    if len(pump_starts) < 2:
+        return cap
+    return min(max(-(-(pending - low) // take), 1) * _period(pump_starts, now), cap)
+
+
+def _hint_follows(port, ref, pump_starts: list, now: float) -> None:
+    """The port's hint is None exactly when the reference's is; else it
+    is the rule over the port's own queue and pump starts, and never
+    above the reference's (the cap)."""
+    got, want = port.admission_retry_after(), ref.admission_retry_after()
+    assert (got is None) == (want is None)
+    if got is None:
+        return
+    pending = port.pending_rows()
+    take = port._take_width(port._controller_width(), pending)
+    assert got == pytest.approx(_drain_rule(pending, port._low_rows, take, pump_starts, now, want), abs=1e-12)
+    assert got <= want
 
 
 def _as_ref(cols: SpanColumns):
@@ -98,9 +135,11 @@ def _as_ref(cols: SpanColumns):
 def test_admission_and_brownout_follow_the_reference(clock):
     """A flood, a sustained stretch, then recovery: after every submit
     and pump both pipelines hold the same queue (row for row), the same
-    saturation and brownout state and the same counters."""
+    saturation and brownout state and the same counters. The saturated
+    Retry-After differs on purpose once the port's pumps are stamped: it
+    is the port's drain time, capped at the reference's constant."""
     port, ref = make_pipe(), make_ref()
-    seen = []
+    seen, pump_starts = [], []
     try:
         for i in range(90):
             clock["t"] += 0.02
@@ -108,13 +147,18 @@ def test_admission_and_brownout_follow_the_reference(clock):
                 cols = make_cols(40 + 17 * (i % 5), err_frac=0.1, seed=i)
                 port.submit_columns(cols)
                 ref.submit_columns(_as_ref(cols))
-                assert _admission(port) == _admission(ref), i
+                assert _admission(port, hint=False) == _admission(ref, hint=False), i
+                _hint_follows(port, ref, pump_starts, clock["t"])
             if i % 2 or i >= 50:
+                pump_starts.append(clock["t"])
                 port.pump(clock["t"])
                 ref.pump(clock["t"])
-                assert _admission(port) == _admission(ref), i
+                assert _admission(port, hint=False) == _admission(ref, hint=False), i
+                _hint_follows(port, ref, pump_starts, clock["t"])
             seen.append(port.brownout_level)
         assert max(seen) >= 2 and seen[-1] == 0
+        # The rule engaged: some saturated answers came in below the cap.
+        assert port.stats.retry_hints_derived > 0
         assert port.stats.shed_rows["ok"] > 0 and port.stats.shed_rows["error"] == 0
         assert port.stats.saturation_events == ref.stats.saturation_events >= 1
     finally:
@@ -262,6 +306,148 @@ def test_query_meta_after_a_flagged_run_follows_the_reference(clock):
     assert jback == back
     for p in (port, ref, fresh, jfresh):
         p.close()
+
+
+# -- the saturated queue's Retry-After: its own drain time -----------------
+
+# A 2,048-row queue (high watermark 1,740 rows, low 1,024), pumped empty
+# at ``starts`` (seconds), then flooded with ``rows``; the question comes
+# ``since`` seconds after the last pump's start. ``take`` is the width
+# the rule must use, ``want`` the answer.
+DRAIN = dict(queue_max_rows=2048, retry_after_s=0.7)
+DRAIN_CASES = {
+    # No period is known before two pumps: the cap, as the reference.
+    "no_pump": dict(starts=(), since=0.0, want=0.7),
+    "one_pump": dict(starts=(0.0,), since=0.01, want=0.7),
+    # The ladder's top (64 × 8) holds the backlog: ceil(776 / 512) = 2.
+    "adaptive_top": dict(kw=dict(adaptive_batching=True), starts=(0.0, 0.05), since=0.01, take=512,
+                         want=2 * 0.05),
+    # Adaptive batching off: the base width, ceil(776 / 64) = 13 pumps.
+    "base_width": dict(starts=(0.0, 0.02), since=0.005, take=64, want=13 * 0.02),
+    # One take (a ladder up to 1,024) reaches the low watermark: one period.
+    "one_take_left": dict(kw=dict(adaptive_batching=True, max_batch_growth=16), starts=(0.0, 0.05),
+                          since=0.01, take=1024, want=0.05),
+    # The mean of the last eight intervals: the 0.5 s gap has left it.
+    "last_eight_intervals": dict(kw=dict(adaptive_batching=True),
+                                 starts=(0.0, 0.5) + tuple(0.5 + 0.03 * k for k in range(1, 9)),
+                                 since=0.01, take=512, want=2 * 0.03),
+    # A stalled pump raises the period to the time since its start...
+    "stalled": dict(kw=dict(adaptive_batching=True), starts=(0.0, 0.05), since=0.2, take=512, want=2 * 0.2),
+    # ...up to the cap.
+    "stalled_past_the_cap": dict(kw=dict(adaptive_batching=True), starts=(0.0, 0.05), since=0.9, take=512,
+                                 want=0.7),
+    # The keyspace ladder's shed rung, the queue admitting: its own hint.
+    "keyspace_shed_rung": dict(kw=dict(keyspace_hold_s=0.01, keyspace_retry_after_s=2.5),
+                               starts=(0.0, 0.05), rows=0, since=0.01, want=2.5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DRAIN_CASES))
+def test_a_saturated_queue_hints_its_own_drain(clock, case):
+    c = DRAIN_CASES[case]
+    starts, rows, since = c["starts"], c.get("rows", 1800), c["since"]
+    pipe = make_pipe(**DRAIN, **c.get("kw", {}))
+    try:
+        t0 = clock["t"]
+        for t in starts:
+            clock["t"] = t0 + t
+            pipe.pump(clock["t"])  # on an empty queue: stamps, takes nothing
+        if rows:
+            pipe.submit_columns(make_cols(rows, err_frac=0.1, seed=31))
+        else:
+            for _ in range(8):
+                clock["t"] += 0.02
+                pipe.keyspace_update(0.95, now=clock["t"])
+            assert pipe.keyspace_level == 4
+        clock["t"] += since
+        assert pipe.saturated == bool(rows) and pipe.pending_rows() == rows
+        if "take" in c:
+            assert pipe._take_width(pipe._controller_width(), rows) == c["take"]
+        got = pipe.admission_retry_after()
+        assert got == pytest.approx(c["want"], abs=1e-9)
+        if rows and len(starts) >= 2:
+            # Never below one period (unless the cap is), never above the cap.
+            period = _period(starts, starts[-1] + since)
+            assert min(period, pipe.retry_after_s) - 1e-9 <= got <= pipe.retry_after_s
+        # Only the saturated answers below the cap count, with their seconds.
+        derived = bool(rows) and got < pipe.retry_after_s
+        assert pipe.stats.retry_hints_derived == int(derived)
+        assert pipe.stats.retry_hint_s_sum == pytest.approx(got if derived else 0.0)
+        # Asking again counts again; the queue, the flag and the ladder are untouched.
+        assert pipe.admission_retry_after() == got
+        assert pipe.stats.retry_hints_derived == 2 * int(derived)
+        assert pipe.saturated == bool(rows) and pipe.pending_rows() == rows and pipe.brownout_level == 0
+    finally:
+        pipe.close()
+
+
+def _closed_loop(hold_at_cap: bool, seconds: float = 1.0) -> dict:
+    """One exporter offering 256-row bodies as the benchmark's closed
+    loop does (ask ``admission_retry_after`` before each body, wait
+    exactly its answer) against a pump every 20 ms, on the wall clock,
+    with one torch thread so the loop leaves the other cores alone.
+    ``hold_at_cap`` keeps the rule at its cap, as if no pump were
+    stamped. Returns the pump calls, those that found the queue empty,
+    and the rows offered, dispatched, shed and browned out."""
+    dispatched = []
+    pipe = make_pipe(queue_max_rows=2048, batch_size=64, adaptive_batching=True, retry_after_s=0.4,
+                     brownout_hold_s=2.0,
+                     history_capture=lambda cols, t: dispatched.append(cols.trace_key.copy()))
+    if hold_at_cap:
+        pipe._pump_starts = deque(maxlen=0)
+    stop = threading.Event()
+    offered, pumps = [], {"calls": 0, "empty": 0}
+
+    def exporter():
+        k = 0
+        while not stop.is_set():
+            wait = pipe.admission_retry_after()
+            if wait is None:
+                body = make_cols(256, err_frac=0.05, seed=k)
+                body = body._replace(trace_key=np.arange(k * 256, (k + 1) * 256, dtype=np.uint64))
+                pipe.submit_columns(body)
+                offered.append(body.trace_key)
+                k += 1
+            elif stop.wait(wait):
+                return
+
+    def pump():
+        while not stop.wait(0.02):
+            empty = pipe.pending_rows() == 0
+            pipe.pump(time.monotonic())
+            pumps["calls"] += 1
+            pumps["empty"] += int(empty)
+
+    threads = [threading.Thread(target=exporter), threading.Thread(target=pump)]
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        pipe.warm_widths()
+        for t in threads:
+            t.start()
+        time.sleep(seconds)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30.0)
+        pipe.close()
+        torch.set_num_threads(torch_threads)
+    assert not any(t.is_alive() for t in threads)
+    return dict(pumps, offered=np.sort(np.concatenate(offered)), dispatched=np.sort(np.concatenate(dispatched)),
+                shed=dict(pipe.stats.shed_rows), brownout=pipe.stats.brownout_rows,
+                saturations=pipe.stats.saturation_events, derived=pipe.stats.retry_hints_derived)
+
+
+def test_a_closed_loop_finds_the_queue_empty_less_often_with_the_drain_hint():
+    capped, derived = _closed_loop(hold_at_cap=True), _closed_loop(hold_at_cap=False)
+    assert capped["saturations"] >= 1 and derived["saturations"] >= 1
+    assert capped["derived"] == 0 and derived["derived"] > 0
+    assert derived["empty"] < capped["empty"], (derived, capped)
+    assert derived["empty"] / derived["calls"] < capped["empty"] / capped["calls"]
+    for run in (capped, derived):
+        assert run["shed"] == {"ok": 0, "error": 0} and run["brownout"] == 0
+        # Every offered row dispatched once (close drains the queue).
+        np.testing.assert_array_equal(run["dispatched"], run["offered"])
 
 
 # -- the pipeline-level cases of tests/test_overload.py, on the port --------
@@ -421,7 +607,10 @@ class TestOverloadDriver:
             over_factor=5.0, seconds=0.3, batch=128, queue_max_rows=1024, brownout_hold_s=0.15,
             pump_interval_s=0.01, config=JDetectorConfig(**SMALL),
         )
-        assert set(out) == set(ref)
+        # The port adds the drain hint's counters: the feed asks the hint
+        # while the queue is saturated, and the pump is stamped.
+        assert set(out) == set(ref) | {"retry_hints_derived", "retry_hint_s_sum"}
+        assert out["retry_hints_derived"] > 0 and out["retry_hint_s_sum"] > 0
 
 
 def test_lagbench_at_a_small_size_returns_the_reference_keys():
